@@ -1,0 +1,588 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # full run, needs one CUDA device
+    python3 chip_smoke.py --quick    # toy sizes: build + correctness only;
+                                     # prints no final result lines
+    python3 chip_smoke.py --out DIR  # also write results and ptxas logs there
+
+Builds the CUDA kernels from the sources in this checkout, holds each kernel
+against its plain PyTorch version on the card, drives ``compress()`` for
+BC1-BC5 at the sizes BASELINE.json names, decodes and checks every result,
+and shows with the launch counters that the path went through the kernels.
+Each phase prints one JSON line. Any failed check makes the exit code non-zero
+and suppresses the final ``{"ok": true, ...}`` line. Without a CUDA device
+the script exits non-zero at once; it never computes on the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Published peaks of one H100 SXM (NVIDIA data sheet), used for the bounds.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+
+PERCEPTUAL = (0.3086, 0.6094, 0.0820)
+FAILURES: list[str] = []
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(ok: bool, what: str) -> bool:
+    if not ok:
+        FAILURES.append(what)
+        print(f"CHECK FAILED: {what}", file=sys.stderr, flush=True)
+    return bool(ok)
+
+
+# ------------------------------------------------------------------ data ---
+
+def photo_rgba(h, w, seed=0, noise=0.015):
+    """Photo-like content: smooth multi-frequency fields + mild noise, opaque
+    alpha (the fixture the repo's quality thresholds are written for)."""
+    r = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([
+        np.sin(x * 0.21 + y * 0.07) * 0.4 + 0.5,
+        np.sin(x * 0.05 + 1.0) * np.cos(y * 0.11) * 0.35 + 0.5,
+        np.sin((x + y) * 0.13 + 2.0) * 0.3 + 0.45,
+        np.ones_like(x)], axis=-1)
+    img[..., :3] += r.normal(0, noise, (h, w, 3)).astype(np.float32)
+    return np.clip(img, 0.0, 1.0).astype(np.float32)
+
+
+def with_alpha_field(img, seed):
+    """Give a photo a real alpha channel: a smooth field with mild noise."""
+    r = np.random.default_rng(seed)
+    h, w = img.shape[:2]
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    a = np.sin(x * 0.09 + 0.5) * np.cos(y * 0.06) * 0.45 + 0.5
+    a += r.normal(0, 0.01, (h, w)).astype(np.float32)
+    out = img.copy()
+    out[..., 3] = np.clip(a, 0.0, 1.0)
+    return out
+
+
+def to_blocks_np(img):
+    h, w, c = img.shape
+    t = img.reshape(h // 4, 4, w // 4, 4, c).transpose(0, 2, 1, 3, 4)
+    return t.reshape(-1, 16, c)
+
+
+def mixed_blocks(n_total, seed=7):
+    """(N,16,4) float32 blocks: photo-like content with a real alpha channel,
+    uniform noise, and the hard cases of a BCn search."""
+    r = np.random.default_rng(seed)
+    hard_each = 256
+    parts = []
+    # solid blocks
+    parts.append(np.repeat(r.random((hard_each, 1, 4), np.float32), 16, 1))
+    # two-colour blocks
+    c = r.random((hard_each, 2, 4), np.float32)
+    pick = r.integers(0, 2, (hard_each, 16))
+    parts.append(np.take_along_axis(c, pick[:, :, None].repeat(4, 2), 1))
+    # one-level gradient: two adjacent 8-bit levels
+    base = r.integers(0, 255, (hard_each, 1, 4))
+    step = r.integers(0, 2, (hard_each, 16, 1))
+    parts.append(((base + step) / 255.0).astype(np.float32))
+    # all-transparent and half-transparent blocks
+    t = r.random((hard_each, 16, 4), np.float32)
+    t[..., 3] = 0.0
+    parts.append(t)
+    t = r.random((hard_each, 16, 4), np.float32)
+    t[..., 3] = r.integers(0, 2, (hard_each, 16)).astype(np.float32)
+    parts.append(t)
+    # alpha exactly at the threshold 128/255, and just below it
+    t = np.repeat(r.random((hard_each, 1, 4), np.float32), 16, 1)
+    t += r.normal(0, 0.03, t.shape).astype(np.float32)
+    t = np.clip(t, 0, 1)
+    t[..., 3] = np.where(r.integers(0, 2, (hard_each, 16)) > 0,
+                         np.float32(128 / 255.0), np.float32(127 / 255.0))
+    parts.append(t)
+    # values exactly 0 and 1; all-zero and all-one blocks
+    parts.append(r.integers(0, 2, (hard_each, 16, 4)).astype(np.float32))
+    parts.append(np.zeros((8, 16, 4), np.float32))
+    parts.append(np.ones((8, 16, 4), np.float32))
+    n_hard = sum(p.shape[0] for p in parts)
+    n_noise = (n_total - n_hard) // 4
+    parts.append(r.random((n_noise, 16, 4), np.float32))
+    n_photo = n_total - n_hard - n_noise
+    side = 4 * int(np.ceil(np.sqrt(n_photo)))
+    photo = with_alpha_field(photo_rgba(side, side, seed=seed), seed + 1)
+    # punch some of the photo's alpha well below the threshold
+    photo[::5, ::3, 3] *= 0.3
+    parts.append(to_blocks_np(photo)[:n_photo])
+    out = np.concatenate(parts, 0).astype(np.float32)
+    assert out.shape[0] == n_total
+    return np.ascontiguousarray(out)
+
+
+# ------------------------------------------------------------- measuring ---
+
+def time_ms(fn, reps):
+    """Mean time of ``fn`` in ms over ``reps`` calls, CUDA events, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def psnr(a, b):
+    mse = torch.mean((a.double() - b.double()) ** 2).item()
+    return float("inf") if mse == 0 else 10.0 * np.log10(255.0 ** 2 / mse)
+
+
+# ---- operation counts per 4x4 block, counted from the search loops.
+# One f32/i32 add, sub, mul, div, min/max, compare or select = 1 operation
+# (the kernels are built without multiply-add contraction). The count is what
+# the search needs, not what a kernel happens to execute: a value that does
+# not depend on the pixel (a candidate's ramp levels, a palette) is counted
+# once per candidate, not once per pixel; the principal axis and the
+# projections are counted once per block although both colour modes use them;
+# an error that the seed race already produced is not counted again at the
+# start of a climb; and a hill-climb candidate is counted only where this
+# run's data gives it a valid endpoint order (``bc4_climb_evals``).
+
+def bc4_climb_evals(vals01, iters=3, radius=2, rounds=2):
+    """Hill-climb candidates per block that the scalar search has to evaluate
+    on this data, as means over the blocks: (8-point family, 6-point family).
+    A candidate whose endpoint order is wrong for its family can never win and
+    needs no evaluation; that happens only where the two endpoints lie within
+    the climb radius of each other. vals01 is (N,16) in [0,1]."""
+    from gfx_imagecompress_tpu_torch.kernels import bc4
+    vals = vals01.t() * 255.0
+    means = []
+    for eight, seed in ((True, bc4._seed8), (False, bc4._seed6)):
+        s0, s1 = seed(vals, iters)
+        total = 0
+        for r in range(rounds):
+            rad = radius if r == 0 else 1
+            c0, c1 = (s0, s1) if r == 0 else bc4._sweep(
+                vals, s0, s1, radius, eight, r)[:2]
+            for d0 in range(-rad, rad + 1):
+                for d1 in range(-rad, rad + 1):
+                    if d0 == 0 and d1 == 0:
+                        continue
+                    a = torch.clamp(c0 + d0, 0, 255)
+                    b = torch.clamp(c1 + d1, 0, 255)
+                    total += ((a > b) if eight else (a <= b)).sum().item()
+        means.append(total / vals.shape[1])
+    return tuple(means)
+
+
+def ops_bc4(climb8, climb6, iters=3):
+    """Operations of the scalar search for one channel of one block."""
+    # one exact-ramp error: the integer ramp (6 or 4 interpolated entries x
+    # (2 mul, 2 add, div)), then per pixel 8 entries x (sub, mul) and 7 min,
+    # and 15 adds for the sum
+    ev8 = 30 + 16 * (8 * 2 + 7) + 15
+    ev6 = 20 + 16 * (8 * 2 + 7) + 15
+    # one least-squares round: per level the interpolated value (mul, add) and
+    # per pixel (sub, mul, compare, 2 selects); 11 ops of normal-equation
+    # terms per pixel (6-point: 15, plus 9 for the literal 0/255 slots);
+    # e1-e0 and the 2x2 solve, 17
+    fit8 = iters * (16 * (8 * 5 + 11) + 3 * 8 + 17)
+    fit6 = iters * (16 * (6 * 5 + 9 + 15) + 3 * 6 + 17)
+    seeds = 30 + 2 * ev8 + 63 * 2 + 10 * ev6     # min/max, race, sort, race
+    climb = climb8 * (ev8 + 5) + climb6 * (ev6 + 5)
+    final = 30 + 16 * (8 * 2 + 7 * 3) + 40       # indices of the winner, pack
+    return fit8 + fit6 + seeds + climb + final
+
+
+def ops_bc1(iters=3, passes=1, allow_three=True):
+    """Operations of the colour search for one opaque block with fixed
+    weights (the main path's settings)."""
+    pca = 48 + 16 * 15 + 8 * 30 + 15     # mean, covariance, power iteration
+    proj = 16 * 10                       # projection on the axis, extents
+    n = pca + proj + 40                  # + endpoint order, final select
+    for k in ((4, 3) if allow_three else (4,)):
+        pal = 3 * (6 + (8 if k == 4 else 3))     # exact palette, 3 channels
+        # 24 endpoint positions: k ramp levels once per candidate, then per
+        # pixel k x (sub, mul, min) and the add
+        sweep = 24 * (16 * (k * 3 + 1) + 3 * k)
+        # two starts x iters least-squares rounds, then quantise
+        lsq = 2 * (iters * (16 * (28 + 4 * (k - 1)) + 45) + 24)
+        # per pixel and palette entry: weighted distance 11, unweighted 5,
+        # compare and 3 selects
+        ev_err = pal + 16 * (k * 11 + k)
+        ev_full = pal + 16 * (k * 16 + (k - 1) * 4 + 4)
+        # jitter: per channel the distance over the two channels that stay
+        # (10 per pixel and entry), then 8 moves
+        per_ch = 16 * k * 10 + 8 * (
+            14 + 16 * (k * 6 + (k - 1) * 3 + 2) + 6)
+        n += sweep + lsq + 2 * ev_err + 2 * ev_full + passes * 3 * per_ch
+    return n + (16 * 6 if allow_three else 0)
+
+
+def bound(n_blocks, bytes_per_block, ops_per_block):
+    t_bytes = n_blocks * bytes_per_block / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_blocks * ops_per_block / PEAK_F32_OPS_PER_S * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"))
+
+
+# ------------------------------------------------------ kernel vs plain ---
+
+def adaptive_weights(blocks):
+    """Per-block colour weights of the adaptive path, (N,3) float32."""
+    mc = (blocks[..., :3] * 255.0).sum(1) / 16.0
+    largest = torch.maximum(torch.maximum(mc[:, 0], mc[:, 1]),
+                            mc[:, 2].clamp(min=1e-6))
+    w = torch.tensor(PERCEPTUAL, device=blocks.device) * (
+        3.0 * mc / largest[:, None] + 1.0) * 0.25
+    return w / w.sum(1, keepdim=True)
+
+
+def decoded_error(name, blocks, words, kw, decode):
+    """The error of the emitted words, measured with the port's decoder, in
+    the units the encoder reports (float64 on the card)."""
+    src = blocks.double() * 255.0
+    if name == "bc4":
+        return ((src - decode.decode_bc4_block(words).double()) ** 2).sum(1)
+    if name == "bc5":
+        dec = decode.decode_bc5(words).double()
+        return ((src[..., :2] - dec) ** 2).sum((1, 2))
+    if name == "bc1":
+        dec = decode.decode_bc1(
+            words, force_four=not kw.get("allow_three", True)).double()
+    elif name == "bc2":
+        dec = decode.decode_bc2(words).double()
+    else:
+        dec = decode.decode_bc3(words).double()
+    if kw.get("adaptive"):
+        w = adaptive_weights(blocks).double()[:, None, :]
+    else:
+        w = torch.tensor(PERCEPTUAL, device=blocks.device).double()
+    d = ((src[..., :3] - dec[..., :3]) ** 2 * w).sum(2)
+    if name == "bc1" and kw.get("use_alpha"):
+        thr = np.float32(float(kw["alpha_threshold"]) * 255.0)
+        d = d * ((blocks[..., 3] * 255.0) >= float(thr)).double()
+    err = d.sum(1)
+    if name == "bc3":
+        err = err + ((src[..., 3] - dec[..., 3]) ** 2).sum(1)
+    if name == "bc2":       # BC2 reports its alpha error from the 8-bit alpha
+        a8 = torch.round(blocks[..., 3] * 255.0).clamp(0, 255).double()
+        err = err + ((a8 - dec[..., 3]) ** 2).sum(1)
+    return err
+
+
+def compare(name, label, wrapper, plain, x, kw, decode, reps, exact_cols=()):
+    """Run kernel and plain version on the same CUDA tensor; check (a) the
+    reported error against the decoder, (b) summed error both ways, (c) the
+    fraction of identical blocks. Returns a result dict with timings."""
+    wk, ek = wrapper(x, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wp, ep = plain(x, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    kernel_ms = time_ms(lambda: wrapper(x, **kw), reps)
+    same = (wk == wp).all(1)
+    frac = same.double().mean().item()
+    max_abs = (ek - ep).abs().max().item()
+    sk, sp = ek.double().sum().item(), ep.double().sum().item()
+    dec_err = decoded_error(name, x, wk, kw, decode)
+    tol_ok = ((dec_err - ek.double()).abs()
+              <= 0.5 + 1e-4 * dec_err.abs()).all().item()
+    tag = f"{name}[{label}]"
+    check(torch.isfinite(ek).all().item(), f"{tag}: non-finite error")
+    check(tol_ok, f"{tag}: reported error != decoded error "
+          "(rtol 1e-4, atol 0.5)")
+    check(sk <= sp * 1.0001 + 1e-3 and sp <= sk * 1.0001 + 1e-3,
+          f"{tag}: summed error kernel {sk} vs plain {sp} beyond x1.0001")
+    check(frac >= 0.99, f"{tag}: only {frac:.5f} of blocks identical")
+    for lo, hi, what in exact_cols:
+        check((wk[:, lo:hi] == wp[:, lo:hi]).all().item(),
+              f"{tag}: {what} words not bit-identical")
+    return {"kernel": name, "budget": label, "n_blocks": int(x.shape[0]),
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "identical_frac": frac, "max_abs_err": max_abs,
+            "sum_err_kernel": sk, "sum_err_plain": sp}
+
+
+def ptxas_summary(logs):
+    """Registers, stack and spill bytes per kernel from ``ptxas -v``."""
+    out = []
+    pat = re.compile(
+        r"Compiling entry function '(\S+)' for 'sm_90a'.*?"
+        r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+        r"(\d+) bytes spill loads.*?Used (\d+) registers", re.S)
+    for lib, log in logs.items():
+        for m in pat.finditer(log):
+            k = re.findall(r"bc\d_kernel(?:ILb[01]EE)?", m.group(1))
+            out.append({"lib": lib, "kernel": k[-1] if k else m.group(1),
+                        "registers": int(m.group(5)),
+                        "stack_bytes": int(m.group(2)),
+                        "spill_store_bytes": int(m.group(3)),
+                        "spill_load_bytes": int(m.group(4))})
+    return out
+
+
+# ------------------------------------------------------------------ main ---
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="small sizes: build and correctness only")
+    ap.add_argument("--out", default=None,
+                    help="directory for results.json and the ptxas logs")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); this script does not run on the CPU", file=sys.stderr)
+        return 1
+
+    import gfx_imagecompress_tpu_torch as gic
+    from gfx_imagecompress_tpu_torch import kernels
+    from gfx_imagecompress_tpu_torch.decode import bcn as decode
+    from gfx_imagecompress_tpu_torch.decode import decode_image
+    from gfx_imagecompress_tpu_torch.kernels import _build, bc1, bc4
+    from gfx_imagecompress_tpu_torch.pipeline.blocks import image_to_blocks
+
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    smi = smi.splitlines()[0] if smi else "nvidia-smi: no output"
+    emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    # ---- build
+    info = _build.ensure_built()
+    resources = ptxas_summary(info["ptxas"])
+    emit({"phase": "build", "seconds": info["seconds"],
+          "built": info["built"], "resources": resources})
+
+    wrappers = {
+        "bc1": (bc1.encode_bc1_blocks, bc1.encode_bc1_blocks_plain),
+        "bc2": (bc1.encode_bc2_blocks, bc1.encode_bc2_blocks_plain),
+        "bc3": (bc1.encode_bc3_blocks, bc1.encode_bc3_blocks_plain),
+        "bc4": (bc4.encode_bc4_blocks, bc4.encode_bc4_blocks_plain),
+        "bc5": (bc4.encode_bc5_blocks, bc4.encode_bc5_blocks_plain),
+    }
+    exact = {"bc2": [(0, 2, "BC2 alpha")], "bc3": [(0, 2, "BC3 alpha")],
+             "bc4": [(0, 2, "BC4")], "bc5": [(0, 4, "BC5")]}
+
+    def inputs_for(name, rgba):
+        if name == "bc4":
+            return rgba[:, :, 0].contiguous()
+        if name == "bc5":
+            return rgba[:, :, :2].contiguous()
+        return rgba
+
+    # ---- kernels vs plain versions on mixed content and hard cases
+    n_mixed = 4096 if args.quick else 65536 + 2048
+    mixed = torch.from_numpy(mixed_blocks(n_mixed)).to(dev)
+    thr = 128 / 255.0
+    budgets = [
+        ("bc1", "default", {}, n_mixed),
+        ("bc1", "use_alpha", {"use_alpha": True, "alpha_threshold": thr},
+         n_mixed),
+        ("bc1", "four_only", {"allow_three": False}, n_mixed),
+        ("bc1", "adaptive", {"adaptive": True}, n_mixed),
+        ("bc1", "b3d", {"b3d": True}, 4096),
+        ("bc1", "b3d_use_alpha", {"b3d": True, "use_alpha": True,
+                                  "alpha_threshold": thr}, 4096),
+        ("bc2", "default", {}, n_mixed),
+        ("bc2", "passes2", {"passes": 2}, n_mixed),
+        ("bc3", "default", {}, n_mixed),
+        ("bc3", "passes2", {"passes": 2}, n_mixed),
+        ("bc4", "default", {}, n_mixed),
+        ("bc5", "default", {}, n_mixed),
+    ]
+    rows = []
+    for name, label, kw, n in budgets:
+        wrapper, plain = wrappers[name]
+        x = inputs_for(name, mixed[:n].contiguous())
+        rows.append(compare(name, label, wrapper, plain, x, kw, decode,
+                            reps=1 if args.quick else 3,
+                            exact_cols=exact.get(name, ())))
+    emit({"phase": "kernel_budgets", "device": smi, "quick": args.quick,
+          "budgets": rows})
+
+    # ---- main path: compress() at the sizes BASELINE.json names
+    q = args.quick
+    side_big = 256 if q else 4096
+    cases = [
+        # name, ctype, image (S,H,W,C), PSNR floor in dB, checked channels
+        ("bc1_64x256", gic.CompressType.DXBC1,
+         np.stack([photo_rgba(256, 256, seed=s) for s in
+                   range(4 if q else 64)]), 30.0, 3),
+        (f"bc1_{side_big}", gic.CompressType.DXBC1,
+         photo_rgba(side_big, side_big, seed=100)[None], 30.0, 3),
+        ("bc4_512", gic.CompressType.DXBC4,
+         photo_rgba(512, 512, seed=101)[None, ..., :1], 35.0, 1),
+        ("bc5_512", gic.CompressType.DXBC5,
+         photo_rgba(512, 512, seed=102)[None, ..., :2], 35.0, 2),
+        ("bc2_1k", gic.CompressType.DXBC2,
+         with_alpha_field(photo_rgba(1024, 1024, seed=103), 3)[None],
+         28.0, 4),
+        ("bc3_1k", gic.CompressType.DXBC3,
+         with_alpha_field(photo_rgba(1024, 1024, seed=104), 4)[None],
+         30.0, 4),
+        ("bc1_npot_13x257", gic.CompressType.DXBC1,
+         photo_rgba(13, 257, seed=105)[None], 30.0, 3),
+    ]
+    kernels.reset_launch_counts()
+    main_rows = []
+    shape_inputs = {}
+    for label, ctype, arr, floor_db, nch in cases:
+        img = gic.Image.from_array(np.ascontiguousarray(arr))   # device=None
+        check(img.device.type == "cuda", f"{label}: image not on the card")
+        out = gic.compress(ctype, img)
+        torch.cuda.synchronize()
+        dec = decode_image(out, force_four=False)
+        src = torch.round(img.data * 255.0)
+        db = psnr(dec[..., :nch], src[..., :nch])
+        s, h, w, _ = arr.shape
+        by, bx = (h + 3) // 4, (w + 3) // 4
+        wpb = 2 if ctype in (gic.CompressType.DXBC1,
+                             gic.CompressType.DXBC4) else 4
+        check(tuple(out.blocks.shape) == (s, by, bx, wpb),
+              f"{label}: grid shape {tuple(out.blocks.shape)}")
+        check(out.blocks.device.type == "cuda", f"{label}: blocks not on card")
+        check(len(out.tobytes()) == s * by * bx * wpb * 4,
+              f"{label}: byte length")
+        check(np.isfinite(db) and db > floor_db,
+              f"{label}: PSNR {db:.2f} dB <= {floor_db}")
+        texels = s * h * w
+        # short calls are timed over more repeats: they are mostly launch cost
+        ms = time_ms(lambda: gic.compress(ctype, img),
+                     1 if q else (3 if texels > 4e6 else 20))
+        main_rows.append({"case": label, "blocks": s * by * bx,
+                          "psnr_db": db, "compress_ms": ms,
+                          "mtexel_per_s": texels / ms / 1e3})
+        shape_inputs[label] = image_to_blocks(img.data)
+        del img, out, dec, src
+
+    # punch-through: decoded alpha bit-exact against the mask
+    pimg = photo_rgba(256, 256, seed=106)
+    yy, xx = np.mgrid[0:256, 0:256]
+    pimg[..., 3] = ((xx // 4 + yy // 4) % 2).astype(np.float32)
+    pimg[::7, ::5, 3] = np.float32(128 / 255.0)        # exactly at threshold
+    pimg[::11, ::3, 3] = np.float32(127 / 255.0)       # just below
+    img = gic.Image.from_array(pimg)
+    out = gic.compress_amd_bc1(
+        img, options=gic.BC1Options(use_alpha=True, alpha_threshold=128))
+    dec = decode_image(out)
+    opaque = (img.data[..., 3] * 255.0) >= 128.0
+    check(((dec[..., 3] > 127) == opaque).all().item(),
+          "punch-through: decoded alpha differs from the mask")
+    db = psnr(dec[..., :3][opaque], torch.round(img.data[..., :3] * 255)[opaque])
+    check(db > 30.0, f"punch-through: opaque PSNR {db:.2f} dB <= 30")
+    main_rows.append({"case": "bc1_punch_256", "blocks": 4096, "psnr_db": db})
+
+    # small input: the card's output against the plain versions on the CPU
+    small = with_alpha_field(photo_rgba(64, 64, seed=107), 5)
+    for ctype in (gic.CompressType.DXBC1, gic.CompressType.DXBC2,
+                  gic.CompressType.DXBC3, gic.CompressType.DXBC4,
+                  gic.CompressType.DXBC5):
+        a = gic.compress(ctype, gic.Image.from_array(small))
+        b = gic.compress(ctype, gic.Image.from_array(small, device="cpu"))
+        check(a.tobytes() == b.tobytes(),
+              f"{ctype.name}: card output differs from the CPU plain version "
+              "on a 64x64 image")
+
+    counts = kernels.launch_counts()
+    for name in wrappers:
+        check(counts[name] > 0, f"main path never launched the {name} kernel")
+    emit({"phase": "main_path", "device": smi, "quick": args.quick,
+          "launches": counts, "cases": main_rows})
+
+    # ---- each kernel at the shape the main path gives it: time, bound,
+    # and once more against the plain version
+    shape_of = {"bc1": f"bc1_{side_big}", "bc2": "bc2_1k", "bc3": "bc3_1k",
+                "bc4": "bc4_512", "bc5": "bc5_512"}
+    # bytes per block: the input read once, words and error written once
+    meta = {
+        "bc1": ("gfx_imagecompress_tpu_torch/csrc/bc1_kernel.cu",
+                "gfx_imagecompress_tpu/kernels/bc1_pallas.py:534", 268),
+        "bc2": ("gfx_imagecompress_tpu_torch/csrc/bc23_kernels.cu",
+                "gfx_imagecompress_tpu/kernels/bc1_pallas.py:635", 276),
+        "bc3": ("gfx_imagecompress_tpu_torch/csrc/bc23_kernels.cu",
+                "gfx_imagecompress_tpu/kernels/bc1_pallas.py:612", 276),
+        "bc4": ("gfx_imagecompress_tpu_torch/csrc/bc45_kernels.cu",
+                "gfx_imagecompress_tpu/kernels/bc4_pallas.py:265", 76),
+        "bc5": ("gfx_imagecompress_tpu_torch/csrc/bc45_kernels.cu",
+                "gfx_imagecompress_tpu/kernels/bc4_pallas.py:274", 148),
+    }
+
+    def ops_per_block(name, x):
+        """Operations per block of kernel ``name`` on the input ``x``."""
+        scalar = {"bc3": [3], "bc4": [None], "bc5": [0, 1]}.get(name, [])
+        n = sum(ops_bc4(*bc4_climb_evals(
+            x if ch is None else x[:, :, ch].contiguous())) for ch in scalar)
+        if name == "bc1":
+            n += ops_bc1()
+        elif name in ("bc2", "bc3"):
+            n += ops_bc1(allow_three=False)
+        if name == "bc2":
+            n += 16 * 10                 # explicit 4-bit alpha and its error
+        return n
+
+    final = []
+    for name, (wrapper, plain) in wrappers.items():
+        blocks = shape_inputs[shape_of[name]]
+        x = blocks[:, :, 0].contiguous() if name == "bc4" else blocks
+        r = compare(name, "main_shape", wrapper, plain, x, {}, decode,
+                    reps=1 if q else (5 if x.shape[0] > 2e5 else 20),
+                    exact_cols=exact.get(name, ()))
+        source, replaces, bytes_pb = meta[name]
+        ops_pb = ops_per_block(name, x)
+        b_ms, b_by = bound(x.shape[0], bytes_pb, ops_pb)
+        final.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "n_blocks": r["n_blocks"],
+            "identical_frac": r["identical_frac"],
+            "bytes_per_block": bytes_pb, "ops_per_block": ops_pb})
+
+    if args.out:
+        import os
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "results.json"), "w") as f:
+            json.dump({"device": smi, "kind": kind, "build": resources,
+                       "build_seconds": info["seconds"], "kernels": rows,
+                       "main_path": main_rows, "launches": counts,
+                       "final": final, "failures": FAILURES}, f, indent=1)
+        for lib, log in info["ptxas"].items():
+            with open(os.path.join(args.out, f"{lib}.ptxas.txt"), "w") as f:
+                f.write(log)
+
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
+        return 1
+    if q:
+        # a quick run checks the build and the kernels at toy sizes; it prints
+        # neither the kernels line nor the final ok line of a full run
+        emit({"phase": "quick_done", "quick": True, "kernels_quick": final})
+        return 0
+    print(smi, flush=True)
+    emit({"kernels": final})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,232 @@
+"""Public API: per-format image compressors, dispatcher, codec picker.
+
+The counterpart of the C++ library's
+  - ImageCompress_Compress / ImageCompress_PickCompressionType
+    (imagecompress.cpp:20-116)
+  - Image_CompressAMDBC1..BC5 (amd_bc{1..5}_compressor.cpp)
+and of the JAX package's ``api.py``, whose option plumbing it mirrors exactly.
+
+Each compressor is image -> block tensor -> one batched encode -> packed word
+grid, on the device the image lives on: a CUDA image goes through the CUDA
+kernels, a CPU image through their plain PyTorch versions. There is no
+init/deinit: ramps are recomputed inside the search.
+
+Progress callbacks: an encode is one launch, so the C++ library's per-row
+progress/cancel hook (imagecompress.h:5) maps to ``compress_chunked``, which
+fires the callback between row bands and honours cancellation between (not
+within) launches.
+
+BC6H and BC7 are not ported yet: their entries exist and raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from .formats import BlockFormat, CompressType, PickFlags
+from .image import CompressedImage, Image
+from .kernels.bc1 import (encode_bc1_blocks, encode_bc2_blocks,
+                          encode_bc3_blocks)
+from .kernels.bc4 import encode_bc4_blocks, encode_bc5_blocks
+from .options import (AMDBackendOptions, BC1Options, BC6HOptions, BC7Options,
+                      PERCEPTUAL_WEIGHTS, RichGel999Options)
+from .pipeline.blocks import image_to_blocks, packed_to_grid
+
+ProgressFunc = Callable[[float], bool]  # returns True to cancel
+
+_NOT_PORTED = "not yet ported: see ROADMAP.md"
+
+
+def _grid(img: Image, words, wpb: int):
+    return packed_to_grid(words, img.slices, img.height, img.width, wpb)
+
+
+def compress_amd_bc1(src: Image,
+                     amd_options: Optional[AMDBackendOptions] = None,
+                     options: Optional[BC1Options] = None) -> CompressedImage:
+    """Image_CompressAMDBC1 analog (amd_bc1_compressor.cpp:11-101)."""
+    amd = amd_options or AMDBackendOptions()
+    opt = options or BC1Options()
+    blocks = image_to_blocks(src.data)
+    use_alpha = opt.use_alpha and src.channels >= 4
+    words, _ = encode_bc1_blocks(
+        blocks, weights=PERCEPTUAL_WEIGHTS,
+        iters=2 + amd.refinement_steps,
+        b3d=amd.b3d_refinement,
+        use_alpha=use_alpha,
+        alpha_threshold=float(opt.alpha_threshold) / 255.0,
+        adaptive=amd.adaptive_colour_weights)
+    fmt = BlockFormat.BC1_SRGB if src.srgb else BlockFormat.BC1_UNORM
+    return CompressedImage(_grid(src, words, 2), fmt, src.width, src.height,
+                           src.slices)
+
+
+def compress_amd_bc2(src: Image,
+                     amd_options: Optional[AMDBackendOptions] = None
+                     ) -> CompressedImage:
+    """Image_CompressAMDBC2 analog: explicit 4-bit alpha + RGB block in one
+    launch (amd_bc2_compressor.cpp:41-46)."""
+    amd = amd_options or AMDBackendOptions()
+    blocks = image_to_blocks(src.data)
+    words, _ = encode_bc2_blocks(
+        _rgba(blocks), weights=PERCEPTUAL_WEIGHTS,
+        iters=2 + amd.refinement_steps,
+        passes=2 if amd.b3d_refinement else 1,
+        adaptive=amd.adaptive_colour_weights)
+    fmt = BlockFormat.BC2_SRGB if src.srgb else BlockFormat.BC2_UNORM
+    return CompressedImage(_grid(src, words, 4), fmt, src.width, src.height,
+                           src.slices)
+
+
+def compress_amd_bc3(src: Image,
+                     amd_options: Optional[AMDBackendOptions] = None
+                     ) -> CompressedImage:
+    """Image_CompressAMDBC3 analog: interpolated alpha + RGB block in one
+    launch (amd_bc3_compressor.cpp:41-46)."""
+    amd = amd_options or AMDBackendOptions()
+    blocks = image_to_blocks(src.data)
+    words, _ = encode_bc3_blocks(
+        _rgba(blocks), weights=PERCEPTUAL_WEIGHTS,
+        iters=2 + amd.refinement_steps,
+        passes=2 if amd.b3d_refinement else 1,
+        adaptive=amd.adaptive_colour_weights)
+    fmt = BlockFormat.BC3_SRGB if src.srgb else BlockFormat.BC3_UNORM
+    return CompressedImage(_grid(src, words, 4), fmt, src.width, src.height,
+                           src.slices)
+
+
+def compress_amd_bc4(src: Image) -> CompressedImage:
+    """Image_CompressAMDBC4 analog.
+
+    NOTE: the C++ library samples channel 1 (G) due to a bug
+    (amd_bc4_compressor.cpp:34-37); like the JAX package this samples
+    channel 0 (R) per the BC4 format contract.
+    """
+    blocks = image_to_blocks(src.data)
+    words, _ = encode_bc4_blocks(blocks[:, :, 0].contiguous())
+    fmt = BlockFormat.BC4_SNORM if src.signed else BlockFormat.BC4_UNORM
+    return CompressedImage(_grid(src, words, 2), fmt, src.width, src.height,
+                           src.slices)
+
+
+def compress_amd_bc5(src: Image) -> CompressedImage:
+    """Image_CompressAMDBC5 analog: channels 0,1 -> two scalar blocks in
+    one launch (amd_bc5_compressor.cpp:35-41)."""
+    blocks = image_to_blocks(src.data)
+    words, _ = encode_bc5_blocks(blocks)
+    fmt = BlockFormat.BC5_SNORM if src.signed else BlockFormat.BC5_UNORM
+    return CompressedImage(_grid(src, words, 4), fmt, src.width, src.height,
+                           src.slices)
+
+
+def compress_amd_bc6h(src: Image,
+                      amd_options: Optional[AMDBackendOptions] = None,
+                      options: Optional[BC6HOptions] = None
+                      ) -> CompressedImage:
+    """Image_CompressAMDBC6H analog - not ported yet."""
+    raise NotImplementedError(_NOT_PORTED)
+
+
+def compress_amd_bc7(src: Image,
+                     amd_options: Optional[AMDBackendOptions] = None,
+                     bc7_options: Optional[BC7Options] = None
+                     ) -> CompressedImage:
+    """Image_CompressAMDBC7 analog - not ported yet."""
+    raise NotImplementedError(_NOT_PORTED)
+
+
+def compress_richgel999_bc7(src: Image,
+                            options: Optional[RichGel999Options] = None
+                            ) -> CompressedImage:
+    """Image_CompressRichGel999BC7 analog - not ported yet."""
+    raise NotImplementedError(_NOT_PORTED)
+
+
+def compress(ctype: CompressType, src: Image,
+             fast: bool = False) -> Optional[CompressedImage]:
+    """ImageCompress_Compress analog (imagecompress.cpp:20-50).
+
+    ``fast`` selects the bc7enc16-style path for BC7. Unimplemented codecs
+    (ETC/ASTC - stubs in the C++ library too, imagecompress.cpp:40-44) return
+    None; BC6H and BC7 raise until they are ported.
+    """
+    if ctype == CompressType.DXBC1:
+        return compress_amd_bc1(src)
+    if ctype == CompressType.DXBC2:
+        return compress_amd_bc2(src)
+    if ctype == CompressType.DXBC3:
+        return compress_amd_bc3(src)
+    if ctype == CompressType.DXBC4:
+        return compress_amd_bc4(src)
+    if ctype == CompressType.DXBC5:
+        return compress_amd_bc5(src)
+    if ctype == CompressType.DXBC6H:
+        return compress_amd_bc6h(src)
+    if ctype == CompressType.DXBC7:
+        if fast:
+            return compress_richgel999_bc7(src)
+        return compress_amd_bc7(src)
+    return None
+
+
+def pick_compression_type(flags: PickFlags, src: Image) -> CompressType:
+    """ImageCompress_PickCompressionType analog - pure policy
+    (imagecompress.cpp:52-116): float sources -> BC6H; 1 channel -> BC4;
+    2 -> BC5; RGB(A) -> BC7 if allowed, else ASTC, else BC3/BC1 by alpha."""
+    if src.hdr:
+        if flags & PickFlags.ALLOW_DXBC6AND7:
+            return CompressType.DXBC6H
+        return CompressType.NONE
+    ch = src.channels
+    if ch == 1:
+        if flags & PickFlags.ALLOW_DXBC1TO5:
+            return CompressType.DXBC4
+        return CompressType.NONE
+    if ch == 2:
+        if flags & PickFlags.ALLOW_DXBC1TO5:
+            return CompressType.DXBC5
+        return CompressType.NONE
+    if flags & PickFlags.ALLOW_DXBC6AND7:
+        return CompressType.DXBC7
+    if flags & PickFlags.ALLOW_ASTC:
+        return CompressType.ASTC
+    if flags & PickFlags.ALLOW_DXBC1TO5:
+        if ch == 4:
+            return CompressType.DXBC3
+        return CompressType.DXBC1
+    return CompressType.NONE
+
+
+def compress_chunked(ctype: CompressType, src: Image,
+                     progress: Optional[ProgressFunc] = None,
+                     rows_per_chunk: int = 64,
+                     fast: bool = False) -> Optional[CompressedImage]:
+    """Progress-callback variant: encodes row bands of blocks and fires
+    ``progress(percent)`` between launches; returning True cancels and
+    yields None (the C++ cancellation contract,
+    amd_bc1_compressor.cpp:64-68)."""
+    h = src.height
+    chunks = []
+    for y0 in range(0, h, rows_per_chunk):
+        y1 = min(y0 + rows_per_chunk, h)
+        band = Image(data=src.data[:, y0:y1], srgb=src.srgb,
+                     signed=src.signed, hdr=src.hdr)
+        out = compress(ctype, band, fast=fast)
+        if out is None:
+            return None
+        chunks.append(out)
+        if progress is not None and progress(100.0 * y1 / h):
+            return None
+    blocks = torch.cat([c.blocks for c in chunks], dim=1)
+    return CompressedImage(blocks, chunks[0].format, src.width, src.height,
+                           src.slices)
+
+
+def _rgba(blocks):
+    """(N,16,C) -> contiguous (N,16,4); a missing alpha reads as opaque."""
+    if blocks.shape[-1] >= 4:
+        return blocks[:, :, :4].contiguous()
+    pad = torch.ones_like(blocks[:, :, :1])
+    return torch.cat([blocks[:, :, :3], pad], dim=-1)

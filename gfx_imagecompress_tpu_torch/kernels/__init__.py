@@ -1,0 +1,19 @@
+"""Block encoders: hand-written CUDA kernels with their plain PyTorch
+versions beside them.
+
+Each wrapper adds one to its kernel's count where it launches the kernel and
+nowhere else; ``launch_counts`` reads the counts and ``reset_launch_counts``
+zeroes them, so a run can show that it went through the kernels.
+"""
+from . import bc1, bc4
+
+
+def launch_counts() -> dict:
+    """Launches of each CUDA kernel since the last reset."""
+    return {**bc1.LAUNCHES, **bc4.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    for table in (bc1.LAUNCHES, bc4.LAUNCHES):
+        for name in table:
+            table[name] = 0

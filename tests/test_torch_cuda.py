@@ -1,0 +1,76 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+These need a CUDA device and ``nvcc``; they carry the ``cuda`` marker and
+skip where there is no device. On a GPU machine run
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+(``--noconftest``: this file needs nothing of tests/conftest.py, which
+imports the JAX package's framework). ``chip_smoke.py`` runs the same
+comparison at larger sizes.
+"""
+import numpy as np
+import pytest
+import torch
+
+from gfx_imagecompress_tpu_torch import kernels
+from gfx_imagecompress_tpu_torch.kernels import bc1, bc4
+
+pytestmark = pytest.mark.cuda
+
+
+def _blocks(n=2048, seed=3):
+    rng = np.random.default_rng(seed)
+    base = rng.random((n, 1, 4), np.float32)
+    d = rng.normal(0, 0.07, (n, 16, 4)).astype(np.float32)
+    b = np.clip(base + d, 0, 1)
+    b[:64] = rng.integers(0, 2, (64, 16, 4))        # exact 0/1
+    b[64:128] = base[64:128]                        # solid
+    return b
+
+
+CASES = [
+    ("bc1", bc1.encode_bc1_blocks, bc1.encode_bc1_blocks_plain, {}),
+    ("bc1", bc1.encode_bc1_blocks, bc1.encode_bc1_blocks_plain,
+     {"use_alpha": True, "alpha_threshold": 0.5}),
+    ("bc1", bc1.encode_bc1_blocks, bc1.encode_bc1_blocks_plain,
+     {"allow_three": False, "adaptive": True}),
+    ("bc1", bc1.encode_bc1_blocks, bc1.encode_bc1_blocks_plain,
+     {"b3d": True}),
+    ("bc2", bc1.encode_bc2_blocks, bc1.encode_bc2_blocks_plain,
+     {"passes": 2}),
+    ("bc3", bc1.encode_bc3_blocks, bc1.encode_bc3_blocks_plain, {}),
+    ("bc4", bc4.encode_bc4_blocks, bc4.encode_bc4_blocks_plain, {}),
+    ("bc5", bc4.encode_bc5_blocks, bc4.encode_bc5_blocks_plain, {}),
+]
+
+
+@pytest.mark.parametrize("name,wrapper,plain,kw", CASES,
+                         ids=[f"{c[0]}-{'-'.join(c[3]) or 'default'}"
+                              for c in CASES])
+def test_kernel_equals_plain_version(name, wrapper, plain, kw):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.from_numpy(_blocks(512 if kw.get("b3d") else 2048)).cuda()
+    if name == "bc4":
+        x = x[:, :, 0].contiguous()
+    before = kernels.launch_counts()[name]
+    wk, ek = wrapper(x, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    wp, ep = plain(x, **kw)
+    # same float32 operations in the same order, no contraction: identical
+    assert (wk == wp).all(dim=1).double().mean().item() >= 0.99
+    torch.testing.assert_close(ek, ep, rtol=1e-5, atol=1e-3)
+
+
+def test_wrapper_raises_on_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.from_numpy(_blocks(64)).cuda()
+    with pytest.raises(TypeError):
+        bc1.encode_bc1_blocks(x.double())
+    with pytest.raises(ValueError):
+        bc4.encode_bc4_blocks(x[:, :, 0])             # not contiguous
+    with pytest.raises(ValueError):
+        bc1.encode_bc3_blocks(x[:, :, :3].contiguous())
