@@ -8,8 +8,9 @@
 
 Builds the CUDA kernels from the sources in this checkout, holds each kernel
 against its plain PyTorch version on the card, drives ``compress()`` for
-BC1-BC5 at the sizes BASELINE.json names, decodes and checks every result,
-and shows with the launch counters that the path went through the kernels.
+BC1-BC5 and for the fast BC7 path at the sizes BASELINE.json names, decodes
+and checks every result, and shows with the launch counters that the path went
+through the kernels.
 Each phase prints one JSON line. Any failed check makes the exit code non-zero
 and suppresses the final ``{"ok": true, ...}`` line. Without a CUDA device
 the script exits non-zero at once; it never computes on the CPU.
@@ -113,6 +114,24 @@ def mixed_blocks(n_total, seed=7):
     parts.append(r.integers(0, 2, (hard_each, 16, 4)).astype(np.float32))
     parts.append(np.zeros((8, 16, 4), np.float32))
     parts.append(np.ones((8, 16, 4), np.float32))
+    # opaque two-colour blocks split along BC7's 2-subset shapes 0 and 13
+    # (bit p of the shape = subset of pixel p), with mild noise
+    for shape in (0xCCCC, 0xFF00):
+        c = r.random((hard_each, 2, 4), np.float32)
+        pick = np.array([(shape >> p) & 1 for p in range(16)])
+        t = c[:, pick, :] + r.normal(0, 0.01, (hard_each, 16, 4)).astype(
+            np.float32)
+        t = np.clip(t, 0, 1)
+        t[..., 3] = 1.0
+        parts.append(t)
+    # opaque solid colours, and a smooth partial alpha over a colour gradient
+    t = np.repeat(r.random((hard_each, 1, 4), np.float32), 16, 1)
+    t[..., 3] = 1.0
+    parts.append(t)
+    t = np.linspace(0, 1, 16, dtype=np.float32)[None, :, None] * r.random(
+        (hard_each, 1, 4), np.float32) + r.random((hard_each, 1, 4),
+                                                  np.float32) * 0.5
+    parts.append(np.clip(t, 0, 1))
     n_hard = sum(p.shape[0] for p in parts)
     n_noise = (n_total - n_hard) // 4
     parts.append(r.random((n_noise, 16, 4), np.float32))
@@ -231,6 +250,90 @@ def ops_bc1(iters=3, passes=1, allow_three=True):
     return n + (16 * 6 if allow_three else 0)
 
 
+def ops_bc7_est(chans=3, subsets=2, nparts=64, k=4, pca=False):
+    """Operations of the partition shortlist for one block. Every partition
+    covers the 16 pixels once, whatever its subsets' sizes."""
+    nc = chans
+    # per pixel: mean add and centring (2 nc), projection (2 nc - 1), its
+    # extremes (2), quantise and reconstruct (7), distance to the axis
+    # (2 nc + 1), quantisation error and the running sum (4)
+    pixel = 6 * nc + 13
+    if pca:
+        # covariance terms per pixel; per subset 4 power rounds of a
+        # matrix-vector product, its length and the scaled vector
+        pixel += nc * (nc + 1)
+        subset = 4 * (2 * nc * nc + 3 * nc + 3)
+    else:
+        pixel += 2 * nc                  # bounding box, min and max
+        subset = 4 * nc + 2              # its diagonal, normalised
+    subset += nc + 2                     # the mean's division, the span
+    # k running best: one compare per partition and the shift of k slots
+    return nparts * (16 * pixel + subsets * subset + 1 + k)
+
+
+def ops_bc7_fast(perceptual=True, uber=4, k=4, opaque_frac=1.0):
+    """Operations of the fast BC7 search for one block: mode 6 always, mode 1
+    for the opaque share of this run's blocks. Counted the GPU way: the
+    palette entry a pixel selects is computed from its index (no select
+    chain), metric-space pixels once per block, pixel-independent values once
+    per candidate, a masked pass only over its subset's pixels (a partition's
+    two subsets cover the 16 pixels once)."""
+    met = 15 if perceptual else 0        # 3x3 map: 9 mul, 6 add
+
+    def assign(nc, levels):
+        # per pixel: projection (3 nc), level index (compare + add per
+        # midpoint), weight of the index (3), integer lerp (5 nc + 1) and
+        # conversion (nc), its metric map, weighted squared distance (4 nc),
+        # running sum
+        pixel = 3 * nc + 2 * (levels - 1) + 3 + 6 * nc + 1 + met + 4 * nc + 1
+        # per candidate: both ends' metric map, direction, length, inverse
+        return pixel, 2 * met + 4 * nc + 4
+
+    def lsq(nc):
+        # per pixel: level of the index (5), 1 - a, three products and sums,
+        # two per channel; per call: determinant, test, inverse, two solved
+        # ends per channel
+        return 12 + 4 * nc, 7 + 10 * nc
+
+    def variants(uber):
+        if uber <= 0:
+            return 0, 0
+        q = uber - 2 if uber >= 4 else 1
+        return 3, ((q + 2) ** 2 - 1 if uber >= 2 else 0)
+
+    n_pert, n_scale = variants(uber)
+    perturb, scale = 16 * 6, 16 * 9      # variant indices for 16 pixels
+    pbit = 16                            # one endpoint channel under one p
+
+    # ---- mode 6
+    a_px, a_c = assign(4, 16)
+    l_px, l_c = lsq(4)
+    # mean, centring, covariance, 8 power rounds, normalise, projections and
+    # extremes, ends; 2 rounds of projection indices + least squares
+    fit4 = (68 + 64 + 320 + 8 * 47 + 19 + 112 + 32 + 16
+            + 2 * (15 + 16 * (12 + 30) + 16 * l_px + l_c))
+    race6 = 2 * (2 * 4 * pbit + 11) + a_c + 16 * a_px + 12
+    refit6 = 16 * l_px + l_c
+    n6 = 2 + n_pert + n_scale
+    mode6 = (fit4 + n6 * race6 + (n6 - 1) * refit6
+             + (32 if uber > 0 else 0) + n_pert * perturb + n_scale * scale)
+
+    # ---- mode 1, per partition (both subsets together = 16 pixels)
+    a_px, a_c = assign(3, 8)
+    l_px, l_c = lsq(3)
+    fit3 = (54 + 48 + 192 + 2 * 8 * 30 + 30 + 80 + 32 + 8 + 24
+            + 2 * (2 * 13 + 16 * (9 + 14) + 16 * l_px + 2 * l_c))
+    quant1 = 2 * (2 * 2 * 3 * pbit + 14) + 2 * a_c + 16 * a_px + 10
+    solid = 30 + a_c + 16 * a_px + 16
+    uber1 = (n_pert * perturb + n_scale * scale
+             + (n_pert + n_scale) * (16 * l_px + 2 * l_c + quant1)
+             + (64 if uber > 0 else 0))
+    mode1 = k * (fit3 + quant1) + solid + uber1
+
+    # metric pixels once, the alpha test, packing
+    return (16 * met + 16 + 150) + mode6 + opaque_frac * mode1
+
+
 def bound(n_blocks, bytes_per_block, ops_per_block):
     t_bytes = n_blocks * bytes_per_block / PEAK_BYTES_PER_S * 1e3
     t_ops = n_blocks * ops_per_block / PEAK_F32_OPS_PER_S * 1e3
@@ -249,10 +352,27 @@ def adaptive_weights(blocks):
     return w / w.sum(1, keepdim=True)
 
 
+def bc7_metric():
+    """The fast BC7 encoder's perceptual metric: (3x3 map, 4 weights)."""
+    from gfx_imagecompress_tpu_torch.kernels import bc7_fast
+    return bc7_fast._YCBCR_M.tolist(), list(bc7_fast.PERCEP_W)
+
+
 def decoded_error(name, blocks, words, kw, decode):
     """The error of the emitted words, measured with the port's decoder, in
     the units the encoder reports (float64 on the card)."""
     src = blocks.double() * 255.0
+    if name == "bc7_fast":
+        from gfx_imagecompress_tpu_torch.decode.bc7 import decode_bc7
+        dec = decode_bc7(words).double()
+        if kw.get("perceptual", True):
+            # the encoder's metric: YCbCr map and channel weights
+            m = torch.tensor(bc7_metric()[0], device=blocks.device).double()
+            w = torch.tensor(bc7_metric()[1], device=blocks.device).double()
+            src = torch.cat([src[..., :3] @ m.T, src[..., 3:]], -1)
+            dec = torch.cat([dec[..., :3] @ m.T, dec[..., 3:]], -1)
+            return ((src - dec) ** 2 * w).sum((1, 2))
+        return ((src - dec) ** 2).sum((1, 2))
     if name == "bc4":
         return ((src - decode.decode_bc4_block(words).double()) ** 2).sum(1)
     if name == "bc5":
@@ -282,7 +402,8 @@ def decoded_error(name, blocks, words, kw, decode):
     return err
 
 
-def compare(name, label, wrapper, plain, x, kw, decode, reps, exact_cols=()):
+def compare(name, label, wrapper, plain, x, kw, decode, reps, exact_cols=(),
+            extra=None):
     """Run kernel and plain version on the same CUDA tensor; check (a) the
     reported error against the decoder, (b) summed error both ways, (c) the
     fraction of identical blocks. Returns a result dict with timings."""
@@ -310,10 +431,39 @@ def compare(name, label, wrapper, plain, x, kw, decode, reps, exact_cols=()):
     for lo, hi, what in exact_cols:
         check((wk[:, lo:hi] == wp[:, lo:hi]).all().item(),
               f"{tag}: {what} words not bit-identical")
+    if extra is not None:
+        extra(tag, x, wk)
     return {"kernel": name, "budget": label, "n_blocks": int(x.shape[0]),
             "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "identical_frac": frac, "max_abs_err": max_abs,
             "sum_err_kernel": sk, "sum_err_plain": sp}
+
+
+def alpha_blocks_take_mode6(tag, x, words):
+    """A BC7 block whose alpha is not all 255 must carry mode 6."""
+    from gfx_imagecompress_tpu_torch.decode.bc7 import block_modes
+    has_alpha = (x[..., 3] * 255.0).amin(1) < 254.999
+    check((block_modes(words)[has_alpha] == 6).all().item(),
+          f"{tag}: a block with alpha does not carry mode 6")
+
+
+def compare_est(label, est, x, cfg, reps):
+    """The shortlist kernel against its plain version: equal ids on every
+    block."""
+    ik = est.estimate_topk(x, **cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ip = est.estimate_topk_plain(x, **cfg)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    kernel_ms = time_ms(lambda: est.estimate_topk(x, **cfg), reps)
+    same = (ik == ip).all(1)
+    check(same.all().item(), f"bc7_est[{label}]: ids differ from the plain "
+          f"version on {int((~same).sum())} of {x.shape[0]} blocks")
+    return {"kernel": "bc7_est", "budget": label, "n_blocks": int(x.shape[0]),
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "identical_frac": same.double().mean().item(),
+            "max_abs_err": float((ik - ip).abs().max().item())}
 
 
 def ptxas_summary(logs):
@@ -325,7 +475,7 @@ def ptxas_summary(logs):
         r"(\d+) bytes spill loads.*?Used (\d+) registers", re.S)
     for lib, log in logs.items():
         for m in pat.finditer(log):
-            k = re.findall(r"bc\d_kernel(?:ILb[01]EE)?", m.group(1))
+            k = re.findall(r"bc\d[a-z_]*kernel(?:IL[bi]\dEE)?", m.group(1))
             out.append({"lib": lib, "kernel": k[-1] if k else m.group(1),
                         "registers": int(m.group(5)),
                         "stack_bytes": int(m.group(2)),
@@ -353,8 +503,11 @@ def main() -> int:
     from gfx_imagecompress_tpu_torch import kernels
     from gfx_imagecompress_tpu_torch.decode import bcn as decode
     from gfx_imagecompress_tpu_torch.decode import decode_image
-    from gfx_imagecompress_tpu_torch.kernels import _build, bc1, bc4
-    from gfx_imagecompress_tpu_torch.pipeline.blocks import image_to_blocks
+    from gfx_imagecompress_tpu_torch.kernels import (_build, bc1, bc4,
+                                                     bc7_est, bc7_fast)
+    from gfx_imagecompress_tpu_torch.api import _rgba as api_rgba
+    from gfx_imagecompress_tpu_torch.pipeline.blocks import (image_to_blocks,
+                                                             packed_to_grid)
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -377,6 +530,8 @@ def main() -> int:
         "bc3": (bc1.encode_bc3_blocks, bc1.encode_bc3_blocks_plain),
         "bc4": (bc4.encode_bc4_blocks, bc4.encode_bc4_blocks_plain),
         "bc5": (bc4.encode_bc5_blocks, bc4.encode_bc5_blocks_plain),
+        "bc7_fast": (bc7_fast.encode_bc7_fast_blocks,
+                     bc7_fast.encode_bc7_fast_blocks_plain),
     }
     exact = {"bc2": [(0, 2, "BC2 alpha")], "bc3": [(0, 2, "BC3 alpha")],
              "bc4": [(0, 2, "BC4")], "bc5": [(0, 4, "BC5")]}
@@ -407,22 +562,53 @@ def main() -> int:
         ("bc3", "passes2", {"passes": 2}, n_mixed),
         ("bc4", "default", {}, n_mixed),
         ("bc5", "default", {}, n_mixed),
+        ("bc7_fast", "default", {}, n_mixed),
+        ("bc7_fast", "fast", {"fast": True}, n_mixed),
+        ("bc7_fast", "rgb_metric", {"perceptual": False}, n_mixed),
+        ("bc7_fast", "fast_rgb_metric", {"fast": True, "perceptual": False},
+         n_mixed),
     ]
+    # BC7 takes mode 1 only for opaque blocks: every other block is made
+    # opaque so both modes meet every kind of content
+    mixed7 = mixed.clone()
+    mixed7[::2, :, 3] = 1.0
     rows = []
     for name, label, kw, n in budgets:
         wrapper, plain = wrappers[name]
-        x = inputs_for(name, mixed[:n].contiguous())
+        bc7 = name == "bc7_fast"
+        x = inputs_for(name, (mixed7 if bc7 else mixed)[:n].contiguous())
         rows.append(compare(name, label, wrapper, plain, x, kw, decode,
                             reps=1 if args.quick else 3,
-                            exact_cols=exact.get(name, ())))
+                            exact_cols=exact.get(name, ()),
+                            extra=alpha_blocks_take_mode6 if bc7 else None))
+    # the shortlist kernel in the configurations of the fast path and of the
+    # full BC7 encoder's 3-subset and mode-7 rankings
+    est_cfgs = [
+        ("rgb_2sub_64_k4", dict(chans=3, subsets=2, plist=tuple(range(64)),
+                                levels=8, k=4)),
+        ("rgb_2sub_fast24_k2", dict(chans=3, subsets=2,
+                                    plist=bc7_fast.FAST_PARTITIONS,
+                                    levels=8, k=2)),
+        ("rgb_3sub_16_k4", dict(chans=3, subsets=3, plist=tuple(range(16)),
+                                levels=4, k=4)),
+        ("rgba_2sub_64_k8_pca", dict(chans=4, subsets=2,
+                                     plist=tuple(range(64)), levels=4, k=8,
+                                     estimator="pca")),
+    ]
+    for label, cfg in est_cfgs:
+        rows.append(compare_est(label, bc7_est, mixed7, cfg,
+                                reps=1 if args.quick else 3))
     emit({"phase": "kernel_budgets", "device": smi, "quick": args.quick,
           "budgets": rows})
 
     # ---- main path: compress() at the sizes BASELINE.json names
     q = args.quick
     side_big = 256 if q else 4096
+    bc7 = gic.CompressType.DXBC7
+    side7 = 128 if q else 1024
     cases = [
-        # name, ctype, image (S,H,W,C), PSNR floor in dB, checked channels
+        # name, ctype, image (S,H,W,C), PSNR floor in dB, checked channels;
+        # a BC7 case's floor is set below from the plain version
         ("bc1_64x256", gic.CompressType.DXBC1,
          np.stack([photo_rgba(256, 256, seed=s) for s in
                    range(4 if q else 64)]), 30.0, 3),
@@ -440,14 +626,49 @@ def main() -> int:
          30.0, 4),
         ("bc1_npot_13x257", gic.CompressType.DXBC1,
          photo_rgba(13, 257, seed=105)[None], 30.0, 3),
+        (f"bc7_fast_{side7}", bc7,
+         photo_rgba(side7, side7, seed=110)[None], None, 3),
+        (f"bc7_fast_{2 * side7}", bc7,
+         photo_rgba(2 * side7, 2 * side7, seed=111)[None], None, 3),
+        (f"bc7_fast_budget_fast_{side7}", "richgel_fast",
+         photo_rgba(side7, side7, seed=110)[None], None, 3),
+        (f"bc7_fast_alpha_{side7}", bc7,
+         with_alpha_field(photo_rgba(side7, side7, seed=112), 6)[None],
+         None, 4),
+        ("bc7_fast_npot_13x257", bc7,
+         photo_rgba(13, 257, seed=113)[None], None, 3),
     ]
-    kernels.reset_launch_counts()
+
+    def encode(ctype, img):
+        if ctype == "richgel_fast":
+            return gic.compress_richgel999_bc7(
+                img, gic.RichGel999Options(fast=True))
+        return gic.compress(ctype, img, fast=ctype == bc7)
+
+    def bc7_floor(ctype, img, nch):
+        """PSNR floor of a BC7 case: what the plain version reaches on the
+        image's top-left 256x256 pixels (or all of a smaller image), less
+        0.5 dB."""
+        crop = gic.Image(data=img.data[:, :256, :256].contiguous(),
+                         srgb=img.srgb)
+        blocks = api_rgba(image_to_blocks(crop.data))
+        words, _ = bc7_fast.encode_bc7_fast_blocks_plain(
+            blocks, fast=ctype == "richgel_fast")
+        dec = decode_image(gic.CompressedImage(
+            packed_to_grid(words, crop.slices, crop.height, crop.width, 4),
+            gic.BlockFormat.BC7_UNORM, crop.width, crop.height, crop.slices))
+        src = torch.round(crop.data * 255.0)
+        return psnr(dec[..., :nch], src[..., :nch]) - 0.5
+
     main_rows = []
     shape_inputs = {}
-    for label, ctype, arr, floor_db, nch in cases:
+
+    def drive(label, ctype, arr, floor_db, nch):
         img = gic.Image.from_array(np.ascontiguousarray(arr))   # device=None
         check(img.device.type == "cuda", f"{label}: image not on the card")
-        out = gic.compress(ctype, img)
+        if floor_db is None:
+            floor_db = bc7_floor(ctype, img, nch)
+        out = encode(ctype, img)
         torch.cuda.synchronize()
         dec = decode_image(out, force_four=False)
         src = torch.round(img.data * 255.0)
@@ -465,13 +686,40 @@ def main() -> int:
               f"{label}: PSNR {db:.2f} dB <= {floor_db}")
         texels = s * h * w
         # short calls are timed over more repeats: they are mostly launch cost
-        ms = time_ms(lambda: gic.compress(ctype, img),
+        ms = time_ms(lambda: encode(ctype, img),
                      1 if q else (3 if texels > 4e6 else 20))
         main_rows.append({"case": label, "blocks": s * by * bx,
-                          "psnr_db": db, "compress_ms": ms,
+                          "psnr_db": db, "psnr_floor_db": floor_db,
+                          "compress_ms": ms,
                           "mtexel_per_s": texels / ms / 1e3})
         shape_inputs[label] = image_to_blocks(img.data)
-        del img, out, dec, src
+
+    def card_equals_cpu(ctype, arr):
+        """Small input: the card's output against the plain versions on the
+        CPU."""
+        a = encode(ctype, gic.Image.from_array(arr))
+        b = encode(ctype, gic.Image.from_array(arr, device="cpu"))
+        check(a.tobytes() == b.tobytes(),
+              f"{ctype.name}: card output differs from the CPU plain version "
+              "on a 64x64 image")
+
+    def launched(names):
+        """The counts of the path just driven: every kernel of it > 0."""
+        got = kernels.launch_counts()
+        for name in names:
+            check(got[name] > 0,
+                  f"main path never launched the {name} kernel")
+        return {name: got[name] for name in names}
+
+    is_bc7 = [c[1] in (bc7, "richgel_fast") for c in cases]
+    small = with_alpha_field(photo_rgba(64, 64, seed=107), 5)
+
+    # Each path is driven with the counts set to 0 just before it and read
+    # just after. First path: compress() for BC1-BC5.
+    kernels.reset_launch_counts()
+    for case, seven in zip(cases, is_bc7):
+        if not seven:
+            drive(*case)
 
     # punch-through: decoded alpha bit-exact against the mask
     pimg = photo_rgba(256, 256, seed=106)
@@ -490,29 +738,39 @@ def main() -> int:
     check(db > 30.0, f"punch-through: opaque PSNR {db:.2f} dB <= 30")
     main_rows.append({"case": "bc1_punch_256", "blocks": 4096, "psnr_db": db})
 
-    # small input: the card's output against the plain versions on the CPU
-    small = with_alpha_field(photo_rgba(64, 64, seed=107), 5)
     for ctype in (gic.CompressType.DXBC1, gic.CompressType.DXBC2,
                   gic.CompressType.DXBC3, gic.CompressType.DXBC4,
                   gic.CompressType.DXBC5):
-        a = gic.compress(ctype, gic.Image.from_array(small))
-        b = gic.compress(ctype, gic.Image.from_array(small, device="cpu"))
-        check(a.tobytes() == b.tobytes(),
-              f"{ctype.name}: card output differs from the CPU plain version "
-              "on a 64x64 image")
+        card_equals_cpu(ctype, small)
+    counts = launched(("bc1", "bc2", "bc3", "bc4", "bc5"))
 
-    counts = kernels.launch_counts()
-    for name in wrappers:
-        check(counts[name] > 0, f"main path never launched the {name} kernel")
+    # Second path: the fast BC7 encoder, through compress(DXBC7, fast=True)
+    # and compress_richgel999_bc7.
+    kernels.reset_launch_counts()
+    for case, seven in zip(cases, is_bc7):
+        if seven:
+            drive(*case)
+    card_equals_cpu(bc7, small)
+    card_equals_cpu(bc7, photo_rgba(64, 64, seed=108))
+    counts.update(launched(("bc7_est", "bc7_fast")))
     emit({"phase": "main_path", "device": smi, "quick": args.quick,
           "launches": counts, "cases": main_rows})
 
     # ---- each kernel at the shape the main path gives it: time, bound,
     # and once more against the plain version
     shape_of = {"bc1": f"bc1_{side_big}", "bc2": "bc2_1k", "bc3": "bc3_1k",
-                "bc4": "bc4_512", "bc5": "bc5_512"}
-    # bytes per block: the input read once, words and error written once
+                "bc4": "bc4_512", "bc5": "bc5_512",
+                "bc7_fast": f"bc7_fast_{side7}"}
+    # bytes per block: the input read once, words and error written once;
+    # the shortlist's ids (4 per block on the main path) written by bc7_est
+    # and read by bc7_fast
     meta = {
+        "bc7_est": ("gfx_imagecompress_tpu_torch/csrc/bc7_est_kernel.cu",
+                    "gfx_imagecompress_tpu/kernels/bc7_full_pallas.py:965",
+                    256 + 16),
+        "bc7_fast": ("gfx_imagecompress_tpu_torch/csrc/bc7_fast_kernel.cu",
+                     "gfx_imagecompress_tpu/kernels/bc7_fast_pallas.py:692",
+                     256 + 16 + 20),
         "bc1": ("gfx_imagecompress_tpu_torch/csrc/bc1_kernel.cu",
                 "gfx_imagecompress_tpu/kernels/bc1_pallas.py:534", 268),
         "bc2": ("gfx_imagecompress_tpu_torch/csrc/bc23_kernels.cu",
@@ -536,26 +794,47 @@ def main() -> int:
             n += ops_bc1(allow_three=False)
         if name == "bc2":
             n += 16 * 10                 # explicit 4-bit alpha and its error
+        if name == "bc7_fast":
+            opaque = ((x[..., 3] * 255.0).amin(1) >= 254.999).double().mean()
+            n += ops_bc7_fast(opaque_frac=opaque.item())
         return n
 
-    final = []
-    for name, (wrapper, plain) in wrappers.items():
-        blocks = shape_inputs[shape_of[name]]
-        x = blocks[:, :, 0].contiguous() if name == "bc4" else blocks
-        r = compare(name, "main_shape", wrapper, plain, x, {}, decode,
-                    reps=1 if q else (5 if x.shape[0] > 2e5 else 20),
-                    exact_cols=exact.get(name, ()))
+    def kernel_row(name, r, x, ops_pb):
         source, replaces, bytes_pb = meta[name]
-        ops_pb = ops_per_block(name, x)
         b_ms, b_by = bound(x.shape[0], bytes_pb, ops_pb)
-        final.append({
+        return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "n_blocks": r["n_blocks"],
             "identical_frac": r["identical_frac"],
-            "bytes_per_block": bytes_pb, "ops_per_block": ops_pb})
+            "bytes_per_block": bytes_pb, "ops_per_block": ops_pb}
+
+    final = []
+    for name, (wrapper, plain) in wrappers.items():
+        blocks = shape_inputs[shape_of[name]]
+        x = blocks[:, :, 0].contiguous() if name == "bc4" else blocks
+        reps = 1 if q else (5 if x.shape[0] > 2e5 else 20)
+        if name == "bc7_fast":
+            # the main path's two launches, each alone: the shortlist, then
+            # the search on the shortlist's ids
+            cfg = dict(chans=3, subsets=2, plist=tuple(range(64)), levels=8,
+                       k=4)
+            final.append(kernel_row(
+                "bc7_est", compare_est("main_shape", bc7_est, x, cfg, reps),
+                x, ops_bc7_est()))
+            ids = bc7_est.estimate_topk(x, **cfg)
+
+            def wrapper(x, ids=ids):
+                return bc7_fast.bc7_fast_search(x, ids)
+
+            def plain(x, ids=ids):
+                return bc7_fast.bc7_fast_search_plain(x, ids, perceptual=True,
+                                                      uber=4)
+        r = compare(name, "main_shape", wrapper, plain, x, {}, decode,
+                    reps=reps, exact_cols=exact.get(name, ()))
+        final.append(kernel_row(name, r, x, ops_per_block(name, x)))
 
     if args.out:
         import os

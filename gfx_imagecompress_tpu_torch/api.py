@@ -16,8 +16,8 @@ progress/cancel hook (imagecompress.h:5) maps to ``compress_chunked``, which
 fires the callback between row bands and honours cancellation between (not
 within) launches.
 
-BC6H and BC7 are not ported yet: their entries exist and raise
-``NotImplementedError``.
+The fast BC7 path (modes 1 + 6) is ported; BC6H and the full BC7 encoder are
+not yet: their entries exist and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from .image import CompressedImage, Image
 from .kernels.bc1 import (encode_bc1_blocks, encode_bc2_blocks,
                           encode_bc3_blocks)
 from .kernels.bc4 import encode_bc4_blocks, encode_bc5_blocks
+from .kernels.bc7_fast import encode_bc7_fast_blocks
 from .options import (AMDBackendOptions, BC1Options, BC6HOptions, BC7Options,
                       PERCEPTUAL_WEIGHTS, RichGel999Options)
 from .pipeline.blocks import image_to_blocks, packed_to_grid
@@ -140,8 +141,16 @@ def compress_amd_bc7(src: Image,
 def compress_richgel999_bc7(src: Image,
                             options: Optional[RichGel999Options] = None
                             ) -> CompressedImage:
-    """Image_CompressRichGel999BC7 analog - not ported yet."""
-    raise NotImplementedError(_NOT_PORTED)
+    """Image_CompressRichGel999BC7 analog (richgel999_bc7enc16.cpp:21-71):
+    fast BC7 restricted to modes 1 and 6; the partition shortlist and the
+    search are one launch each."""
+    opt = options or RichGel999Options()
+    blocks = image_to_blocks(src.data)
+    words, _ = encode_bc7_fast_blocks(
+        _rgba(blocks), fast=opt.fast, perceptual=opt.perceptual)
+    fmt = BlockFormat.BC7_SRGB if src.srgb else BlockFormat.BC7_UNORM
+    return CompressedImage(_grid(src, words, 4), fmt, src.width, src.height,
+                           src.slices)
 
 
 def compress(ctype: CompressType, src: Image,
@@ -150,7 +159,7 @@ def compress(ctype: CompressType, src: Image,
 
     ``fast`` selects the bc7enc16-style path for BC7. Unimplemented codecs
     (ETC/ASTC - stubs in the C++ library too, imagecompress.cpp:40-44) return
-    None; BC6H and BC7 raise until they are ported.
+    None; BC6H and BC7 without ``fast`` raise until they are ported.
     """
     if ctype == CompressType.DXBC1:
         return compress_amd_bc1(src)

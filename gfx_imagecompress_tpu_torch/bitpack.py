@@ -1,16 +1,16 @@
-"""Bit-field extraction over packed 32-bit words.
+"""Bit-field packing and extraction over packed 32-bit words.
 
-Every block is W little-endian 32-bit words and every field read is a
-static-offset shift/mask over the whole ``(N, W)`` batch.
+Every block is W little-endian 32-bit words and every field write or read is
+a static-offset shift/or/mask over the whole ``(N, W)`` batch.
 
 Bit addressing: bit ``b`` of the 64/128-bit block lives in word ``b // 32``
 at in-word position ``b % 32`` (little-endian, matching the C++ library's
 ``uint32*`` stores and the DDS on-disk layout).
 
 Words arrive as int32 storage (see ``image.py``); they are widened to
-non-negative int64 before any shift, so bit 31 never acts as a sign.
-Only the readers the BC1-BC5 decoders use live here; the field writers
-(``field_or``, ``Sink``) come with the BC7/BC6H packers.
+non-negative int64 before any shift, so bit 31 never acts as a sign; the
+writers build int64 columns and ``wrap_u32`` folds them back into the int32
+storage.
 """
 from __future__ import annotations
 
@@ -43,3 +43,72 @@ def extract_indices(words: torch.Tensor, start: int,
     cols = [extract(words, start + i * bits_per_index, bits_per_index)
             for i in range(16)]
     return torch.stack(cols, dim=1)
+
+
+def wrap_u32(w: torch.Tensor) -> torch.Tensor:
+    """int64 holding an unsigned 32-bit value -> the int32 word storage."""
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def field_or(words: torch.Tensor, value: torch.Tensor, start: int,
+             nbits: int) -> torch.Tensor:
+    """OR an ``nbits``-wide field (static offset) into (N, W) int32 words;
+    returns new words. ``value``: (N,) any int dtype, masked to ``nbits``.
+    Fields may straddle one word boundary (nbits <= 32)."""
+    sink = Sink.from_words(words)
+    return sink.put(value, start, nbits).words()
+
+
+class Sink:
+    """Column-based block assembler: W independent int64 accumulators, each
+    holding an unsigned 32-bit value; one stack at the end. ``n`` is the
+    number of blocks, or the shape of a column (the encoders' plain versions
+    keep ``(1, N)`` rows)."""
+
+    def __init__(self, n, words_per_block: int, device=None):
+        shape = (n,) if isinstance(n, int) else tuple(n)
+        self.cols = [torch.zeros(shape, dtype=torch.int64, device=device)
+                     for _ in range(words_per_block)]
+
+    @classmethod
+    def from_words(cls, words: torch.Tensor) -> "Sink":
+        sink = cls(0, 0)
+        sink.cols = [_u32(words[:, i]) for i in range(words.shape[1])]
+        return sink
+
+    def put(self, value: torch.Tensor, start: int, nbits: int) -> "Sink":
+        assert 0 < nbits <= 32
+        v = value.to(torch.int64) & mask(nbits)
+        w, off = divmod(start, 32)
+        self.cols[w] = self.cols[w] | ((v << off) & 0xFFFFFFFF)
+        if off + nbits > 32:
+            self.cols[w + 1] = self.cols[w + 1] | (v >> (32 - off))
+        return self
+
+    def put_indices(self, indices: torch.Tensor, start: int,
+                    bits_per_index: int) -> "Sink":
+        """Pack (N, 16) per-pixel indices LSB-first from ``start``."""
+        for i in range(16):
+            self.put(indices[:, i], start + i * bits_per_index,
+                     bits_per_index)
+        return self
+
+    def put_dyn(self, value: torch.Tensor, start: torch.Tensor,
+                nbits: torch.Tensor) -> "Sink":
+        """OR a field whose bit offset and width are per-block tensors
+        (anchor-dependent index fields)."""
+        v = value.to(torch.int64) & ((1 << nbits) - 1)
+        w = start // 32
+        off = start % 32
+        lo = (v << off) & 0xFFFFFFFF
+        hi = v >> (32 - off)          # 0 unless the field straddles
+        for i in range(len(self.cols)):
+            add = torch.where(w == i, lo, 0)
+            if i:
+                add = add | torch.where(w == i - 1, hi, 0)
+            self.cols[i] = self.cols[i] | add
+        return self
+
+    def words(self) -> torch.Tensor:
+        """(N, W) int32 word storage from (N,) columns."""
+        return wrap_u32(torch.stack(self.cols, dim=1))

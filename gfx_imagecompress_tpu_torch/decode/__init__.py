@@ -1,5 +1,6 @@
 """Bit-exact BCn block decoders (the round-trip oracle)."""
 
+from .bc7 import decode_bc7
 from .bcn import (decode_bc1, decode_bc2, decode_bc3, decode_bc4, decode_bc5)
 
 
@@ -21,8 +22,9 @@ def decode_image(compressed, force_four: bool = False):
         px = decode_bc4(words)
     elif fmt in (BlockFormat.BC5_UNORM, BlockFormat.BC5_SNORM):
         px = decode_bc5(words)
-    elif fmt in (BlockFormat.BC7_UNORM, BlockFormat.BC7_SRGB,
-                 BlockFormat.BC6H_UFLOAT, BlockFormat.BC6H_SFLOAT):
+    elif fmt in (BlockFormat.BC7_UNORM, BlockFormat.BC7_SRGB):
+        px = decode_bc7(words)
+    elif fmt in (BlockFormat.BC6H_UFLOAT, BlockFormat.BC6H_SFLOAT):
         raise NotImplementedError("not yet ported: see ROADMAP.md")
     else:
         raise ValueError(f"cannot decode {fmt}")

@@ -5,15 +5,17 @@ Each wrapper adds one to its kernel's count where it launches the kernel and
 nowhere else; ``launch_counts`` reads the counts and ``reset_launch_counts``
 zeroes them, so a run can show that it went through the kernels.
 """
-from . import bc1, bc4
+from . import bc1, bc4, bc7_est, bc7_fast
+
+_TABLES = (bc1.LAUNCHES, bc4.LAUNCHES, bc7_est.LAUNCHES, bc7_fast.LAUNCHES)
 
 
 def launch_counts() -> dict:
     """Launches of each CUDA kernel since the last reset."""
-    return {**bc1.LAUNCHES, **bc4.LAUNCHES}
+    return {name: n for table in _TABLES for name, n in table.items()}
 
 
 def reset_launch_counts() -> None:
-    for table in (bc1.LAUNCHES, bc4.LAUNCHES):
+    for table in _TABLES:
         for name in table:
             table[name] = 0

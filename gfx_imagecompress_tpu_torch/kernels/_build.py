@@ -35,12 +35,18 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-HEADERS = ("bcx_common.cuh", "bc1_search.cuh", "bc4_search.cuh")
+HEADERS = ("bcx_common.cuh", "bc1_search.cuh", "bc4_search.cuh",
+           "bc7_common.cuh", "bc7_est.cuh", "bc7_fast_search.cuh")
 # library -> (source, headers it includes)
 SOURCES = {
     "bc1": ("bc1_kernel.cu", ("bcx_common.cuh", "bc1_search.cuh")),
-    "bc23": ("bc23_kernels.cu", HEADERS),
+    "bc23": ("bc23_kernels.cu",
+             ("bcx_common.cuh", "bc1_search.cuh", "bc4_search.cuh")),
     "bc45": ("bc45_kernels.cu", ("bcx_common.cuh", "bc4_search.cuh")),
+    "bc7_est": ("bc7_est_kernel.cu",
+                ("bcx_common.cuh", "bc7_common.cuh", "bc7_est.cuh")),
+    "bc7_fast": ("bc7_fast_kernel.cu",
+                 ("bcx_common.cuh", "bc7_common.cuh", "bc7_fast_search.cuh")),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -56,6 +62,8 @@ FUNCTIONS = {
     "bc2_encode": ("bc23", (_P, _L, _P, _P, _F, _F, _F, _I, _I, _I)),
     "bc4_encode": ("bc45", (_P, _L, _P, _P, _I, _I, _I)),
     "bc5_encode": ("bc45", (_P, _L, _I, _P, _P, _I, _I, _I)),
+    "bc7_est_topk": ("bc7_est", (_P, _L, _I, _I, _P, _I, _I, _I, _I, _P)),
+    "bc7_fast_encode": ("bc7_fast", (_P, _L, _P, _I, _I, _I, _P, _P)),
 }
 
 _lock = threading.Lock()
@@ -136,7 +144,8 @@ def ensure_built() -> dict:
 
 def launch(name: str, *args) -> None:
     """Call the C function ``name`` on the current stream. Tensors are passed
-    by their data pointer. Raises if the launch is refused."""
+    by their data pointer; a ctypes array (a short host-side list) passes as
+    it is. Raises if the launch is refused."""
     ensure_built()
     lib, _ = FUNCTIONS[name]
     fn = getattr(_libs[lib], name)

@@ -26,6 +26,8 @@ from __future__ import annotations
 
 import torch
 
+from ..bitpack import wrap_u32
+
 F32 = torch.float32
 I32 = torch.int32
 I64 = torch.int64
@@ -58,11 +60,6 @@ def _max16(x):
 def _round_u8(x):
     """clip(round-half-even(x), 0, 255) as int32."""
     return torch.clamp(torch.round(x), 0, 255).to(I32)
-
-
-def wrap_u32(w: torch.Tensor) -> torch.Tensor:
-    """int64 holding an unsigned 32-bit value -> the int32 word storage."""
-    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(I32)
 
 
 # ---------------------------------------------------------------- search ---

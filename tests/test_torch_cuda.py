@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from gfx_imagecompress_tpu_torch import kernels
-from gfx_imagecompress_tpu_torch.kernels import bc1, bc4
+from gfx_imagecompress_tpu_torch.kernels import bc1, bc4, bc7_est, bc7_fast
 
 pytestmark = pytest.mark.cuda
 
@@ -42,6 +42,11 @@ CASES = [
     ("bc3", bc1.encode_bc3_blocks, bc1.encode_bc3_blocks_plain, {}),
     ("bc4", bc4.encode_bc4_blocks, bc4.encode_bc4_blocks_plain, {}),
     ("bc5", bc4.encode_bc5_blocks, bc4.encode_bc5_blocks_plain, {}),
+    ("bc7_fast", bc7_fast.encode_bc7_fast_blocks,
+     bc7_fast.encode_bc7_fast_blocks_plain, {}),
+    ("bc7_fast", bc7_fast.encode_bc7_fast_blocks,
+     bc7_fast.encode_bc7_fast_blocks_plain,
+     {"fast": True, "perceptual": False}),
 ]
 
 
@@ -54,6 +59,8 @@ def test_kernel_equals_plain_version(name, wrapper, plain, kw):
     x = torch.from_numpy(_blocks(512 if kw.get("b3d") else 2048)).cuda()
     if name == "bc4":
         x = x[:, :, 0].contiguous()
+    if name == "bc7_fast":
+        x[::2, :, 3] = 1.0          # mode 1 is for opaque blocks only
     before = kernels.launch_counts()[name]
     wk, ek = wrapper(x, **kw)
     torch.cuda.synchronize()
@@ -62,6 +69,44 @@ def test_kernel_equals_plain_version(name, wrapper, plain, kw):
     # same float32 operations in the same order, no contraction: identical
     assert (wk == wp).all(dim=1).double().mean().item() >= 0.99
     torch.testing.assert_close(ek, ep, rtol=1e-5, atol=1e-3)
+
+
+EST_CASES = {
+    "rgb_2sub": dict(chans=3, subsets=2, plist=tuple(range(64)), levels=8,
+                     k=4),
+    "rgb_3sub": dict(chans=3, subsets=3, plist=tuple(range(16)), levels=4,
+                     k=4),
+    "rgba_pca": dict(chans=4, subsets=2, plist=tuple(range(64)), levels=4,
+                     k=8, estimator="pca"),
+}
+
+
+@pytest.mark.parametrize("name", list(EST_CASES))
+def test_shortlist_kernel_equals_plain_version(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.from_numpy(_blocks(2048)).cuda()
+    before = kernels.launch_counts()["bc7_est"]
+    ik = bc7_est.estimate_topk(x, **EST_CASES[name])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["bc7_est"] == before + 1
+    assert torch.equal(ik, bc7_est.estimate_topk_plain(x, **EST_CASES[name]))
+
+
+def test_bc7_wrappers_raise_on_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.from_numpy(_blocks(64)).cuda()
+    cfg = EST_CASES["rgb_2sub"]
+    with pytest.raises(ValueError):
+        bc7_est.estimate_topk(x.double(), **cfg)
+    with pytest.raises(ValueError):
+        bc7_est.estimate_topk(x, **dict(cfg, k=9))
+    ids = bc7_est.estimate_topk(x, **cfg)
+    with pytest.raises(ValueError):
+        bc7_fast.bc7_fast_search(x, ids.long())
+    with pytest.raises(ValueError):
+        bc7_fast.bc7_fast_search(x, ids.cpu())
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take():

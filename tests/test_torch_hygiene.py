@@ -26,7 +26,10 @@ def test_port_has_the_expected_modules():
     assert {"__init__.py", "api.py", "image.py", "formats.py", "options.py",
             "bitpack.py", "convert.py", "pipeline/blocks.py",
             "decode/bcn.py", "decode/__init__.py", "kernels/bc1.py",
-            "kernels/bc4.py", "kernels/_build.py", "io/dds.py"} <= names
+            "kernels/bc4.py", "kernels/_build.py", "io/dds.py",
+            "bitpack_dyn.py", "decode/bc7.py", "tables/__init__.py",
+            "tables/bc7_tables.py", "kernels/bc7_est.py",
+            "kernels/bc7_fast.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -61,6 +64,9 @@ def test_runs_with_jax_and_the_jax_package_blocked():
         "           gic.CompressType.DXBC5):\n"
         "    out = gic.compress(ct, img)\n"
         "    assert decode_image(out).shape[:3] == (1, 8, 12)\n"
+        "out = gic.compress_richgel999_bc7(\n"
+        "    img, gic.RichGel999Options(fast=True))\n"
+        "assert decode_image(out).shape == (1, 8, 12, 4)\n"
         "assert sum(kernels.launch_counts().values()) == 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       if sys.modules[m] is not None]\n"
@@ -100,8 +106,10 @@ def test_cpu_wrappers_never_touch_the_build_module():
         device="cpu")
     for ct in ("DXBC1", "DXBC2", "DXBC3", "DXBC4", "DXBC5"):
         assert tgic.compress(tgic.CompressType[ct], img) is not None
+    assert tgic.compress(tgic.CompressType.DXBC7, img, fast=True) is not None
     assert kernels.launch_counts() == {
-        "bc1": 0, "bc2": 0, "bc3": 0, "bc4": 0, "bc5": 0}
+        "bc1": 0, "bc2": 0, "bc3": 0, "bc4": 0, "bc5": 0, "bc7_est": 0,
+        "bc7_fast": 0}
 
 
 def test_build_module_names_sources_that_exist():
@@ -143,6 +151,7 @@ def test_c_signatures_match_the_argument_tables():
     from gfx_imagecompress_tpu_torch.kernels import _build
     kinds = {"const float*": ctypes.c_void_p, "uint32_t*": ctypes.c_void_p,
              "float*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+             "const int*": ctypes.c_void_p, "int*": ctypes.c_void_p,
              "long long": ctypes.c_longlong, "int": ctypes.c_int,
              "float": ctypes.c_float}
     for fn, (lib, argtypes) in _build.FUNCTIONS.items():
