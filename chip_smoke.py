@@ -8,9 +8,9 @@
 
 Builds the CUDA kernels from the sources in this checkout, holds each kernel
 against its plain PyTorch version on the card, drives ``compress()`` for
-BC1-BC5 and for the fast BC7 path at the sizes BASELINE.json names, decodes
-and checks every result, and shows with the launch counters that the path went
-through the kernels.
+BC1-BC5, for the fast BC7 path and for the full BC7 path at the sizes
+BASELINE.json names, decodes and checks every result, and shows with the
+launch counters that each path went through its kernels.
 Each phase prints one JSON line. Any failed check makes the exit code non-zero
 and suppresses the final ``{"ok": true, ...}`` line. Without a CUDA device
 the script exits non-zero at once; it never computes on the CPU.
@@ -334,6 +334,105 @@ def ops_bc7_fast(perceptual=True, uber=4, k=4, opaque_frac=1.0):
     return (16 * met + 16 + 150) + mode6 + opaque_frac * mode1
 
 
+FULL_MODES = {  # mode: subsets, channels searched, p-bit combos, index bits,
+    #              alpha-index bits of a dual mode, index selections
+    0: (3, 3, 4, 3, 0, 1), 1: (2, 3, 2, 3, 0, 1), 2: (3, 3, 1, 2, 0, 1),
+    3: (2, 3, 4, 2, 0, 1), 4: (1, 3, 1, 2, 3, 2), 5: (1, 3, 1, 2, 2, 1),
+    6: (1, 4, 4, 4, 0, 1), 7: (2, 4, 4, 2, 0, 1)}
+
+
+def ops_bc7_full_mode(mode, iters=3, shake=3, uber=4, topk=8, keep=2,
+                      parts0=16):
+    """Operations of one mode of the full BC7 search for one block, counted
+    like ``ops_bc7_fast``: per-pixel work over the pixels a pass visits (a
+    partition's subsets cover the 16 pixels once), pixel-independent values
+    once per call, the palette entry a pixel selects (no select chain)."""
+    s, nc, combos, ib, aib, nsel = FULL_MODES[mode]
+    lv = 1 << ib
+
+    def assign(nc, lv):
+        # per pixel: projection (3 nc), level index (2 per midpoint), weight
+        # (3), integer lerp and conversion (6 nc), distance and sum (3 nc + 1)
+        return 12 * nc + 2 * (lv - 1) + 4, 4 * nc + 4
+
+    def fit(nc, lv, subsets):
+        # per pixel: mean, centring, covariance terms, projection + extremes;
+        # per subset: the mean's division, 8 power rounds, normalise, ends;
+        # per round per pixel: projection index and level, least-squares terms
+        px = nc * nc + 6 * nc + 2
+        sub = 16 * nc * nc + 31 * nc + 40
+        rnd = 16 * (7 * nc + 2 * lv + 13) + subsets * (14 * nc + 11)
+        return 16 * px + subsets * sub + iters * rnd
+
+    def quant(nc, lv, subsets, race):
+        # p-bit race by rounding error (two quantisations, two squares per
+        # channel and combination), then `race` exact assigns
+        a_px, a_c = assign(nc, lv)
+        race_ops = subsets * (4 * nc + combos * (nc * 24 + 4)) if combos > 1 \
+            else subsets * nc * 14
+        return race_ops + race * (16 * a_px + subsets * (a_c + nc * 18 + 2))
+
+    def variants(u):
+        if u <= 0:
+            return 0, 0
+        q = u - 2 if u >= 4 else 1
+        return 3, ((q + 2) ** 2 - 1 if u >= 2 else 0)
+
+    def uber_ops(nc, lv, subsets, u, race):
+        npert, nscale = variants(u)
+        lsq = 16 * (12 + 4 * nc) + subsets * (7 + 10 * nc)
+        return (16 * (npert * 6 + nscale * 9 + 2)
+                + (npert + nscale) * (lsq + quant(nc, lv, subsets, race)
+                                      + subsets * 2))
+
+    def shake_ops(nc, lv, subsets, rounds, srange, combos_):
+        steps = (2 * srange + 1) ** 2
+        a_px, a_c = assign(nc, lv)
+        per_round = (nc * steps * (16 * 12 + subsets * 17)
+                     + combos_ * (16 * a_px + subsets * (a_c + 10 * nc + 2)))
+        return rounds * per_round
+
+    if mode in (4, 5):
+        la = 1 << aib
+        scalar_fit = (iters * (16 * (la * 6 + 10) + 14) + 30 + 14
+                      + 16 * la * 8)
+        cand = (fit(3, lv, 1) + quant(3, lv, 1, 1) + scalar_fit + 2)
+        n = 4 * nsel * cand
+        refines = keep if (uber or shake) else 0
+        u2 = min(uber, 2)
+        npert, nscale = variants(u2)
+        per = 0
+        if u2:
+            per += uber_ops(3, lv, 1, u2, 1)
+            per += (npert + nscale) * (16 * 16 + 14 + 16 * la * 8 + 2)
+        if shake:
+            per += shake_ops(3, lv, 1, shake, 1, 1)
+            per += shake * (9 * (16 * 12 + 17) + 16 * (2 * la + 14) + 10)
+        return n + refines * (per + 8 * 64) + 200
+    race = 2 if mode == 0 else 1
+    u = uber + 2 if (mode == 0 and uber) else uber
+    k = 1 if s == 1 else (parts0 if mode == 0 else topk)
+    keep2 = s >= 2 and mode in (0, 2, 7) and k > 1 and (uber or shake)
+    n = k * (fit(nc, lv, s) + quant(nc, lv, s, race) + 4 * s)
+    if uber or shake:
+        per = (uber_ops(nc, lv, s, u, race) if u else 0) + (
+            shake_ops(nc, lv, s, shake, 2 if shake >= 3 else 1, combos)
+            if shake else 0)
+        n += (2 if keep2 else 1) * per
+    return n + 150 + (48 if mode < 4 else 0)
+
+
+def ops_bc7_full(unbarred_frac=0.0, **budget):
+    """Operations of the full BC7 search for one block over modes 0-7 at a
+    budget; modes 6/7 only for the share of blocks they are not barred from
+    (a barred block's thread returns at once)."""
+    n = 64                                 # the block scaled to 0..255, once
+    for m in range(8):
+        ops = ops_bc7_full_mode(m, **budget)
+        n += ops * (unbarred_frac if m >= 6 else 1.0)
+    return n
+
+
 def bound(n_blocks, bytes_per_block, ops_per_block):
     t_bytes = n_blocks * bytes_per_block / PEAK_BYTES_PER_S * 1e3
     t_ops = n_blocks * ops_per_block / PEAK_F32_OPS_PER_S * 1e3
@@ -362,6 +461,9 @@ def decoded_error(name, blocks, words, kw, decode):
     """The error of the emitted words, measured with the port's decoder, in
     the units the encoder reports (float64 on the card)."""
     src = blocks.double() * 255.0
+    if name == "bc7_full":
+        from gfx_imagecompress_tpu_torch.decode.bc7 import decode_bc7
+        return ((src - decode_bc7(words).double()) ** 2).sum((1, 2))
     if name == "bc7_fast":
         from gfx_imagecompress_tpu_torch.decode.bc7 import decode_bc7
         dec = decode_bc7(words).double()
@@ -431,20 +533,39 @@ def compare(name, label, wrapper, plain, x, kw, decode, reps, exact_cols=(),
     for lo, hi, what in exact_cols:
         check((wk[:, lo:hi] == wp[:, lo:hi]).all().item(),
               f"{tag}: {what} words not bit-identical")
+    row = {"kernel": name, "budget": label, "n_blocks": int(x.shape[0]),
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "identical_frac": frac, "max_abs_err": max_abs,
+           "sum_err_kernel": sk, "sum_err_plain": sp}
     if extra is not None:
-        extra(tag, x, wk)
-    return {"kernel": name, "budget": label, "n_blocks": int(x.shape[0]),
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "identical_frac": frac, "max_abs_err": max_abs,
-            "sum_err_kernel": sk, "sum_err_plain": sp}
+        row.update(extra(tag, x, wk, kw) or {})
+    return row
 
 
-def alpha_blocks_take_mode6(tag, x, words):
+def alpha_blocks_take_mode6(tag, x, words, kw):
     """A BC7 block whose alpha is not all 255 must carry mode 6."""
     from gfx_imagecompress_tpu_torch.decode.bc7 import block_modes
     has_alpha = (x[..., 3] * 255.0).amin(1) < 254.999
     check((block_modes(words)[has_alpha] == 6).all().item(),
           f"{tag}: a block with alpha does not carry mode 6")
+
+
+def barred_blocks_avoid_modes_6_7(tag, x, words, kw):
+    """Full BC7: a block the restrictions bar from modes 6/7 carries neither
+    (where a mode 0-5 is enabled); returns the count of blocks per mode."""
+    from gfx_imagecompress_tpu_torch.decode.bc7 import block_modes
+    from gfx_imagecompress_tpu_torch.kernels import bc7_full
+    modes = block_modes(words)
+    mask = kw.get("mode_mask", 0xFF)
+    if mask & 0x3F:
+        bar = bc7_full._combined_alpha_bar(
+            x, kw.get("colour_restrict", True), kw.get("alpha_restrict", True))
+        check(not ((modes[bar] == 6) | (modes[bar] == 7)).any().item(),
+              f"{tag}: a barred block carries mode 6 or 7")
+    check(all((mask >> m) & 1 for m in modes.unique().tolist()),
+          f"{tag}: a block carries a mode the mask does not enable")
+    return {"blocks_per_mode": torch.bincount(
+        modes.long(), minlength=9)[:8].tolist()}
 
 
 def compare_est(label, est, x, cfg, reps):
@@ -475,7 +596,8 @@ def ptxas_summary(logs):
         r"(\d+) bytes spill loads.*?Used (\d+) registers", re.S)
     for lib, log in logs.items():
         for m in pat.finditer(log):
-            k = re.findall(r"bc\d[a-z_]*kernel(?:IL[bi]\dEE)?", m.group(1))
+            k = re.findall(r"bc\d[a-z_]*kernel(?:I(?:L[bi]\d+E)+E)?",
+                           m.group(1))
             out.append({"lib": lib, "kernel": k[-1] if k else m.group(1),
                         "registers": int(m.group(5)),
                         "stack_bytes": int(m.group(2)),
@@ -504,7 +626,8 @@ def main() -> int:
     from gfx_imagecompress_tpu_torch.decode import bcn as decode
     from gfx_imagecompress_tpu_torch.decode import decode_image
     from gfx_imagecompress_tpu_torch.kernels import (_build, bc1, bc4,
-                                                     bc7_est, bc7_fast)
+                                                     bc7_est, bc7_fast,
+                                                     bc7_full)
     from gfx_imagecompress_tpu_torch.api import _rgba as api_rgba
     from gfx_imagecompress_tpu_torch.pipeline.blocks import (image_to_blocks,
                                                              packed_to_grid)
@@ -532,6 +655,8 @@ def main() -> int:
         "bc5": (bc4.encode_bc5_blocks, bc4.encode_bc5_blocks_plain),
         "bc7_fast": (bc7_fast.encode_bc7_fast_blocks,
                      bc7_fast.encode_bc7_fast_blocks_plain),
+        "bc7_full": (bc7_full.encode_bc7_blocks,
+                     bc7_full.encode_bc7_blocks_plain),
     }
     exact = {"bc2": [(0, 2, "BC2 alpha")], "bc3": [(0, 2, "BC3 alpha")],
              "bc4": [(0, 2, "BC4")], "bc5": [(0, 4, "BC5")]}
@@ -567,20 +692,31 @@ def main() -> int:
         ("bc7_fast", "rgb_metric", {"perceptual": False}, n_mixed),
         ("bc7_fast", "fast_rgb_metric", {"fast": True, "perceptual": False},
          n_mixed),
+        ("bc7_full", "q1", {}, n_mixed),
+        ("bc7_full", "q05", {"quality": 0.5}, n_mixed),
+        ("bc7_full", "q025", {"quality": 0.25}, n_mixed),
+        ("bc7_full", "q1_performance03", {"performance": 0.3}, n_mixed),
+        ("bc7_full", "q05_unrestricted",
+         {"quality": 0.5, "colour_restrict": False, "alpha_restrict": False},
+         n_mixed),
+        *[("bc7_full", f"q1_mode{m}", {"mode_mask": 1 << m}, 8192)
+          for m in range(8)],
     ]
     # BC7 takes mode 1 only for opaque blocks: every other block is made
     # opaque so both modes meet every kind of content
     mixed7 = mixed.clone()
     mixed7[::2, :, 3] = 1.0
     rows = []
+    extras = {"bc7_fast": alpha_blocks_take_mode6,
+              "bc7_full": barred_blocks_avoid_modes_6_7}
     for name, label, kw, n in budgets:
         wrapper, plain = wrappers[name]
-        bc7 = name == "bc7_fast"
+        bc7 = name.startswith("bc7")
         x = inputs_for(name, (mixed7 if bc7 else mixed)[:n].contiguous())
         rows.append(compare(name, label, wrapper, plain, x, kw, decode,
                             reps=1 if args.quick else 3,
                             exact_cols=exact.get(name, ()),
-                            extra=alpha_blocks_take_mode6 if bc7 else None))
+                            extra=extras.get(name)))
     # the shortlist kernel in the configurations of the fast path and of the
     # full BC7 encoder's 3-subset and mode-7 rankings
     est_cfgs = [
@@ -594,6 +730,12 @@ def main() -> int:
         ("rgba_2sub_64_k8_pca", dict(chans=4, subsets=2,
                                      plist=tuple(range(64)), levels=4, k=8,
                                      estimator="pca")),
+        ("rgb_3sub_64_k8", dict(chans=3, subsets=3, plist=tuple(range(64)),
+                                levels=4, k=8)),
+        ("rgb_3sub_16_l8_k8", dict(chans=3, subsets=3,
+                                   plist=tuple(range(16)), levels=8, k=8)),
+        ("rgb_2sub_64_k9", dict(chans=3, subsets=2, plist=tuple(range(64)),
+                                levels=8, k=9)),
     ]
     for label, cfg in est_cfgs:
         rows.append(compare_est(label, bc7_est, mixed7, cfg,
@@ -637,12 +779,24 @@ def main() -> int:
          None, 4),
         ("bc7_fast_npot_13x257", bc7,
          photo_rgba(13, 257, seed=113)[None], None, 3),
+        # full BC7 on the same images as the fast path
+        (f"bc7_full_{side7}", "bc7_full",
+         photo_rgba(side7, side7, seed=110)[None], None, 3),
+        (f"bc7_full_{2 * side7}", "bc7_full",
+         photo_rgba(2 * side7, 2 * side7, seed=111)[None], None, 3),
+        (f"bc7_full_alpha_{side7}", "bc7_full",
+         with_alpha_field(photo_rgba(side7, side7, seed=112), 6)[None],
+         None, 4),
+        ("bc7_full_npot_13x257", "bc7_full",
+         photo_rgba(13, 257, seed=113)[None], None, 3),
     ]
 
     def encode(ctype, img):
         if ctype == "richgel_fast":
             return gic.compress_richgel999_bc7(
                 img, gic.RichGel999Options(fast=True))
+        if ctype == "bc7_full":
+            return gic.compress(bc7, img)
         return gic.compress(ctype, img, fast=ctype == bc7)
 
     def bc7_floor(ctype, img, nch):
@@ -652,8 +806,11 @@ def main() -> int:
         crop = gic.Image(data=img.data[:, :256, :256].contiguous(),
                          srgb=img.srgb)
         blocks = api_rgba(image_to_blocks(crop.data))
-        words, _ = bc7_fast.encode_bc7_fast_blocks_plain(
-            blocks, fast=ctype == "richgel_fast")
+        if ctype == "bc7_full":
+            words, _ = bc7_full.encode_bc7_blocks_plain(blocks)
+        else:
+            words, _ = bc7_fast.encode_bc7_fast_blocks_plain(
+                blocks, fast=ctype == "richgel_fast")
         dec = decode_image(gic.CompressedImage(
             packed_to_grid(words, crop.slices, crop.height, crop.width, 4),
             gic.BlockFormat.BC7_UNORM, crop.width, crop.height, crop.slices))
@@ -685,9 +842,13 @@ def main() -> int:
         check(np.isfinite(db) and db > floor_db,
               f"{label}: PSNR {db:.2f} dB <= {floor_db}")
         texels = s * h * w
-        # short calls are timed over more repeats: they are mostly launch cost
-        ms = time_ms(lambda: encode(ctype, img),
-                     1 if q else (3 if texels > 4e6 else 20))
+        # short calls are timed over more repeats: they are mostly launch
+        # cost; the full BC7 search is long at any size
+        if ctype == "bc7_full":
+            reps = 1 if q or texels > 2e6 else 2
+        else:
+            reps = 1 if q else (3 if texels > 4e6 else 20)
+        ms = time_ms(lambda: encode(ctype, img), reps)
         main_rows.append({"case": label, "blocks": s * by * bx,
                           "psnr_db": db, "psnr_floor_db": floor_db,
                           "compress_ms": ms,
@@ -700,8 +861,8 @@ def main() -> int:
         a = encode(ctype, gic.Image.from_array(arr))
         b = encode(ctype, gic.Image.from_array(arr, device="cpu"))
         check(a.tobytes() == b.tobytes(),
-              f"{ctype.name}: card output differs from the CPU plain version "
-              "on a 64x64 image")
+              f"{getattr(ctype, 'name', ctype)}: card output differs from the "
+              "CPU plain version on a 64x64 image")
 
     def launched(names):
         """The counts of the path just driven: every kernel of it > 0."""
@@ -711,14 +872,15 @@ def main() -> int:
                   f"main path never launched the {name} kernel")
         return {name: got[name] for name in names}
 
-    is_bc7 = [c[1] in (bc7, "richgel_fast") for c in cases]
+    path_of = [2 if c[1] in (bc7, "richgel_fast") else
+               3 if c[1] == "bc7_full" else 1 for c in cases]
     small = with_alpha_field(photo_rgba(64, 64, seed=107), 5)
 
     # Each path is driven with the counts set to 0 just before it and read
     # just after. First path: compress() for BC1-BC5.
     kernels.reset_launch_counts()
-    for case, seven in zip(cases, is_bc7):
-        if not seven:
+    for case, path in zip(cases, path_of):
+        if path == 1:
             drive(*case)
 
     # punch-through: decoded alpha bit-exact against the mask
@@ -747,12 +909,28 @@ def main() -> int:
     # Second path: the fast BC7 encoder, through compress(DXBC7, fast=True)
     # and compress_richgel999_bc7.
     kernels.reset_launch_counts()
-    for case, seven in zip(cases, is_bc7):
-        if seven:
+    for case, path in zip(cases, path_of):
+        if path == 2:
             drive(*case)
     card_equals_cpu(bc7, small)
     card_equals_cpu(bc7, photo_rgba(64, 64, seed=108))
     counts.update(launched(("bc7_est", "bc7_fast")))
+
+    # Third path: the full BC7 encoder, through compress(DXBC7) (quality 1.0,
+    # all eight modes). Its shortlist launches are counted again from 0.
+    kernels.reset_launch_counts()
+    for case, path in zip(cases, path_of):
+        if path == 3:
+            drive(*case)
+    card_equals_cpu("bc7_full", small)
+    card_equals_cpu("bc7_full", photo_rgba(64, 64, seed=108))
+    full_counts = launched(("bc7_est", "bc7_full"))
+    counts["bc7_full"] = full_counts["bc7_full"]
+    counts["bc7_est_full_path"] = full_counts["bc7_est"]
+    psnr_of = {r["case"]: r["psnr_db"] for r in main_rows}
+    check(psnr_of[f"bc7_full_{side7}"] >= psnr_of[f"bc7_fast_{side7}"],
+          f"bc7_full_{side7}: RGB PSNR {psnr_of[f'bc7_full_{side7}']:.3f} dB "
+          f"below the fast path's {psnr_of[f'bc7_fast_{side7}']:.3f} dB")
     emit({"phase": "main_path", "device": smi, "quick": args.quick,
           "launches": counts, "cases": main_rows})
 
@@ -760,7 +938,8 @@ def main() -> int:
     # and once more against the plain version
     shape_of = {"bc1": f"bc1_{side_big}", "bc2": "bc2_1k", "bc3": "bc3_1k",
                 "bc4": "bc4_512", "bc5": "bc5_512",
-                "bc7_fast": f"bc7_fast_{side7}"}
+                "bc7_fast": f"bc7_fast_{side7}",
+                "bc7_full": f"bc7_full_{side7}"}
     # bytes per block: the input read once, words and error written once;
     # the shortlist's ids (4 per block on the main path) written by bc7_est
     # and read by bc7_fast
@@ -771,6 +950,10 @@ def main() -> int:
         "bc7_fast": ("gfx_imagecompress_tpu_torch/csrc/bc7_fast_kernel.cu",
                      "gfx_imagecompress_tpu/kernels/bc7_fast_pallas.py:692",
                      256 + 16 + 20),
+        # the kernel template; bc7_full_m02/m1367/m45_kernel.cu instantiate it
+        "bc7_full": ("gfx_imagecompress_tpu_torch/csrc/bc7_full_search.cuh",
+                     "gfx_imagecompress_tpu/kernels/bc7_full_pallas.py:1015",
+                     None),
         "bc1": ("gfx_imagecompress_tpu_torch/csrc/bc1_kernel.cu",
                 "gfx_imagecompress_tpu/kernels/bc1_pallas.py:534", 268),
         "bc2": ("gfx_imagecompress_tpu_torch/csrc/bc23_kernels.cu",
@@ -799,8 +982,9 @@ def main() -> int:
             n += ops_bc7_fast(opaque_frac=opaque.item())
         return n
 
-    def kernel_row(name, r, x, ops_pb):
-        source, replaces, bytes_pb = meta[name]
+    def kernel_row(name, r, x, ops_pb, bytes_pb=None, **more):
+        source, replaces, fixed_bytes = meta[name]
+        bytes_pb = fixed_bytes if bytes_pb is None else bytes_pb
         b_ms, b_by = bound(x.shape[0], bytes_pb, ops_pb)
         return {
             "name": name, "route": "cuda", "source": source,
@@ -809,7 +993,46 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "n_blocks": r["n_blocks"],
             "identical_frac": r["identical_frac"],
-            "bytes_per_block": bytes_pb, "ops_per_block": ops_pb}
+            "bytes_per_block": bytes_pb, "ops_per_block": ops_pb, **more}
+
+    def full_kernel_row(x, reps):
+        """The full search's eight launches of one compress() chunk, on the
+        main path's shortlists (computed once, not timed): all together,
+        each alone, and once more against the plain version."""
+        plan = bc7_full._plan(1.0, 0xFF, 1.0, None, None, None, None)
+        bar = bc7_full._combined_alpha_bar(x, True, True)
+        pre = {tuple(sorted(cfg.items())): bc7_est.estimate_topk(x, **cfg)
+               for cfg in plan.shortlists.values() if isinstance(cfg, dict)}
+
+        def given(blocks, **cfg):
+            return pre[tuple(sorted(cfg.items()))]
+
+        def searches(fn):
+            return lambda x: bc7_full._encode(x, plan, bar, given, fn)
+
+        per_mode = {}
+        for m in plan.modes:
+            cfg = plan.shortlists.get(m)
+            ids = given(x, **cfg) if isinstance(cfg, dict) else cfg
+            per_mode[m] = time_ms(lambda: bc7_full.bc7_mode_search(
+                x, m, ids, iters=plan.iters, shake=plan.shake, uber=plan.uber,
+                keep=plan.keep, bar=bar if m >= 6 else None), reps)
+        r = compare("bc7_full", "main_shape",
+                    searches(bc7_full.bc7_mode_search),
+                    searches(bc7_full.bc7_mode_search_plain), x, {}, decode,
+                    reps=reps, extra=barred_blocks_avoid_modes_6_7)
+        unbarred = 1.0 - bar.double().mean().item()
+        # bytes: the block read by each mode that runs on it (modes 6/7 skip
+        # barred blocks after reading their bar byte), the shortlists of
+        # modes 1, 3, 2 and 7 (8 ids each), each mode's words and error
+        # written and the running error read by modes 1-7
+        k = plan.shortlists[1]["k"]
+        bytes_pb = int(round(6 * 256 + 2 + unbarred * 2 * 256
+                             + 4 * k * (3 + unbarred) + 8 * 20 + 7 * 4))
+        return kernel_row("bc7_full", r, x, ops_bc7_full(unbarred),
+                          bytes_pb=bytes_pb, per_mode_ms=per_mode,
+                          blocks_per_mode=r["blocks_per_mode"],
+                          unbarred_frac=unbarred)
 
     final = []
     for name, (wrapper, plain) in wrappers.items():
@@ -832,6 +1055,9 @@ def main() -> int:
             def plain(x, ids=ids):
                 return bc7_fast.bc7_fast_search_plain(x, ids, perceptual=True,
                                                       uber=4)
+        if name == "bc7_full":
+            final.append(full_kernel_row(x, 1 if q else 3))
+            continue
         r = compare(name, "main_shape", wrapper, plain, x, {}, decode,
                     reps=reps, exact_cols=exact.get(name, ()))
         final.append(kernel_row(name, r, x, ops_per_block(name, x)))

@@ -16,11 +16,13 @@ progress/cancel hook (imagecompress.h:5) maps to ``compress_chunked``, which
 fires the callback between row bands and honours cancellation between (not
 within) launches.
 
-The fast BC7 path (modes 1 + 6) is ported; BC6H and the full BC7 encoder are
-not yet: their entries exist and raise ``NotImplementedError``.
+BC7 is ported in both forms: the full multi-mode search (``compress_amd_bc7``)
+and the fast path (modes 1 + 6, ``compress_richgel999_bc7``). BC6H is not yet:
+its entries exist and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Optional
 
 import torch
@@ -31,9 +33,11 @@ from .kernels.bc1 import (encode_bc1_blocks, encode_bc2_blocks,
                           encode_bc3_blocks)
 from .kernels.bc4 import encode_bc4_blocks, encode_bc5_blocks
 from .kernels.bc7_fast import encode_bc7_fast_blocks
+from .kernels.bc7_full import encode_bc7_blocks
 from .options import (AMDBackendOptions, BC1Options, BC6HOptions, BC7Options,
                       PERCEPTUAL_WEIGHTS, RichGel999Options)
 from .pipeline.blocks import image_to_blocks, packed_to_grid
+from .pipeline.chunking import encode_chunked
 
 ProgressFunc = Callable[[float], bool]  # returns True to cancel
 
@@ -134,8 +138,23 @@ def compress_amd_bc7(src: Image,
                      amd_options: Optional[AMDBackendOptions] = None,
                      bc7_options: Optional[BC7Options] = None
                      ) -> CompressedImage:
-    """Image_CompressAMDBC7 analog - not ported yet."""
-    raise NotImplementedError(_NOT_PORTED)
+    """Image_CompressAMDBC7 analog (amd_bc7_compressor.cpp:25-112): the full
+    multi-mode search, quality 1.0 by default, in chunks of 65,536 blocks;
+    per chunk the partition shortlists and one search launch per enabled
+    mode. Without ``bc7_options`` the AMD options' ``mode_mask`` applies."""
+    amd = amd_options or AMDBackendOptions()
+    opt = bc7_options or BC7Options(mode_mask=amd.mode_mask)
+    blocks = image_to_blocks(src.data)
+    words, _ = encode_chunked(
+        partial(encode_bc7_blocks, quality=opt.quality,
+                mode_mask=opt.mode_mask,
+                colour_restrict=opt.colour_restrict,
+                alpha_restrict=opt.alpha_restrict,
+                performance=opt.performance),
+        _rgba(blocks), chunk=65536)
+    fmt = BlockFormat.BC7_SRGB if src.srgb else BlockFormat.BC7_UNORM
+    return CompressedImage(_grid(src, words, 4), fmt, src.width, src.height,
+                           src.slices)
 
 
 def compress_richgel999_bc7(src: Image,
@@ -159,7 +178,7 @@ def compress(ctype: CompressType, src: Image,
 
     ``fast`` selects the bc7enc16-style path for BC7. Unimplemented codecs
     (ETC/ASTC - stubs in the C++ library too, imagecompress.cpp:40-44) return
-    None; BC6H and BC7 without ``fast`` raise until they are ported.
+    None; BC6H raises until it is ported.
     """
     if ctype == CompressType.DXBC1:
         return compress_amd_bc1(src)

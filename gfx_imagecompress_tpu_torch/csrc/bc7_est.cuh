@@ -8,8 +8,11 @@
 // registers for the whole sweep; the partition loop stays rolled and reads
 // the shape from __constant__ memory (uniform over the warp), the pixel and
 // channel loops are unrolled and predicated on the shape's bit; the 64
-// estimates are never stored - MAX_K running-best (value, slot) pairs give
-// the same ids because equal values keep list order.
+// estimates are never stored - K running-best (value, slot) pairs give the
+// same ids because equal values keep list order. K is a template on a small
+// set of slot counts (4, 9, 16) so that the fast path's k = 4 keeps its
+// registers while the full encoder's k = 9 (quality above 0.75 with
+// performance below 1) and the overrides up to 16 still run.
 //
 // Bit-agreement with the plain version (kernels/bc7_est.py): sums run over the
 // subset's pixels in pixel order (a skipped pixel is the same as adding +0),
@@ -20,7 +23,10 @@
 
 namespace bc7 {
 
-constexpr int MAX_K = 8;
+constexpr int MAX_K = 16;
+
+// slot count of the instantiation that serves k ids
+inline int slots_for(int k) { return k <= 4 ? 4 : (k <= 9 ? 9 : 16); }
 
 struct PartList {
   int n;
@@ -130,18 +136,18 @@ __device__ __forceinline__ void subset_estimate(const float (&x)[NC][16], uint32
     }
 }
 
-// The k best partitions of `pl` for one block, best first, into ids[0..k).
-// Of equal estimates the one earlier in the list ranks first.
-template <int NC>
+// The k best partitions of `pl` for one block, best first, into ids[0..k),
+// k <= K. Of equal estimates the one earlier in the list ranks first.
+template <int NC, int K>
 __device__ __forceinline__ void estimate_topk(const float (&x)[NC][16], int subsets,
                                               const PartList& pl, int levels, int k, bool pca,
                                               int* __restrict__ ids) {
   const float lm1 = (float)(levels - 1);
   const float inv_lm1 = (float)(1.0 / (double)(levels - 1));
-  float bv[MAX_K];
-  int bs[MAX_K];
+  float bv[K];
+  int bs[K];
 #pragma unroll
-  for (int r = 0; r < MAX_K; ++r) {
+  for (int r = 0; r < K; ++r) {
     bv[r] = INFINITY;
     bs[r] = 0;
   }
@@ -159,7 +165,7 @@ __device__ __forceinline__ void estimate_topk(const float (&x)[NC][16], int subs
     int slot = j;
     bool carry = false;
 #pragma unroll
-    for (int r = 0; r < MAX_K; ++r) {
+    for (int r = 0; r < K; ++r) {
       carry = carry || (v < bv[r]);
       if (carry) {
         const float tv = bv[r];
@@ -172,7 +178,7 @@ __device__ __forceinline__ void estimate_topk(const float (&x)[NC][16], int subs
     }
   }
 #pragma unroll
-  for (int r = 0; r < MAX_K; ++r)
+  for (int r = 0; r < K; ++r)
     if (r < k) ids[r] = pl.id[bs[r]];
 }
 

@@ -3,14 +3,15 @@
 // _estimate_topk_rows). The search is bc7_est.cuh; see there for what bounds
 // it and what the design does about that. Channels, subsets, levels, k, the
 // estimator and the partition list are launch arguments; the list travels
-// in the kernel's parameter space, which is constant memory.
+// in the kernel's parameter space, which is constant memory. k picks one of
+// three instantiations by its slot count (bc7::slots_for).
 //
 // (N,16,4) float32 in [0,1] -> (N,k) int32 partition ids, best first.
 #include "bc7_est.cuh"
 
 namespace {
 
-template <int NC>
+template <int NC, int K>
 __global__ void __launch_bounds__(bcx::THREADS)
 bc7_est_kernel(const float* __restrict__ x, int64_t n, int subsets, bc7::PartList pl,
                int levels, int k, int pca, int* __restrict__ ids) {
@@ -18,7 +19,7 @@ bc7_est_kernel(const float* __restrict__ x, int64_t n, int subsets, bc7::PartLis
   if (i >= n) return;
   float xs[NC][16];
   bcx::load_block<NC>(x + i * 64, 4, xs);
-  bc7::estimate_topk<NC>(xs, subsets, pl, levels, k, pca != 0, ids + i * k);
+  bc7::estimate_topk<NC, K>(xs, subsets, pl, levels, k, pca != 0, ids + i * k);
 }
 
 }  // namespace
@@ -40,11 +41,25 @@ extern "C" int bc7_est_topk(const float* x, long long n, int chans, int subsets,
     pl.id[j] = (uint8_t)id;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (chans == 3)
-    bc7_est_kernel<3><<<bcx::grid_for(n), bcx::THREADS, 0, s>>>(x, n, subsets, pl, levels, k,
-                                                                 pca, ids);
-  else
-    bc7_est_kernel<4><<<bcx::grid_for(n), bcx::THREADS, 0, s>>>(x, n, subsets, pl, levels, k,
-                                                                 pca, ids);
+  const unsigned grid = bcx::grid_for(n);
+  const int slots = bc7::slots_for(k);
+#define BC7_EST_LAUNCH(NC, K)                                                          \
+  bc7_est_kernel<NC, K><<<grid, bcx::THREADS, 0, s>>>(x, n, subsets, pl, levels, k, pca, ids)
+  if (chans == 3) {
+    if (slots == 4)
+      BC7_EST_LAUNCH(3, 4);
+    else if (slots == 9)
+      BC7_EST_LAUNCH(3, 9);
+    else
+      BC7_EST_LAUNCH(3, 16);
+  } else {
+    if (slots == 4)
+      BC7_EST_LAUNCH(4, 4);
+    else if (slots == 9)
+      BC7_EST_LAUNCH(4, 9);
+    else
+      BC7_EST_LAUNCH(4, 16);
+  }
+#undef BC7_EST_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -38,7 +38,7 @@ __device__ __forceinline__ u64 nibble_mask(uint32_t mask) {
 
 template <int IB>
 __device__ __forceinline__ int weight(int i) {
-  return IB == 4 ? weight4(i) : weight3(i);
+  return IB == 4 ? weight4(i) : (IB == 3 ? weight3(i) : weight2(i));
 }
 
 // interpolation level of index i as a float (w / 64, exact)
@@ -175,11 +175,13 @@ __device__ __forceinline__ void principal_axis(const float (&cov)[NC][NC], float
   for (int c = 0; c < NC; ++c) axis[c] = ok ? v[c] * inv : fallback;
 }
 
-// ---- PCA + least-squares line fit over the pixels of `mask`. NC = 4, IB = 4
-// with the full mask is mode 6's fit; NC = 3, IB = 3 a mode-1 subset's.
+// ---- PCA + least-squares line fit over the pixels of `mask`, `iters`
+// least-squares rounds. NC = 4, IB = 4 with the full mask is mode 6's fit;
+// NC = 3, IB = 3 a mode-1 subset's. `full` (all 16 pixels) drops the guards
+// of an empty extent, which cannot arise then.
 template <int NC, int IB>
 __device__ __forceinline__ void fit_line(const float (&xs)[4][16], uint32_t mask, bool full,
-                                         float (&e0)[NC], float (&e1)[NC]) {
+                                         int iters, float (&e0)[NC], float (&e1)[NC]) {
   const float cnt = full ? 16.0f : fmaxf((float)__popc(mask), 1.0f);
   float mean[NC];
 #pragma unroll
@@ -224,7 +226,7 @@ __device__ __forceinline__ void fit_line(const float (&xs)[4][16], uint32_t mask
     e1[c] = mean[c] + tmax * axis[c];
   }
 #pragma unroll 1
-  for (int it = 0; it < 2; ++it) {
+  for (int it = 0; it < iters; ++it) {
     Proj<NC> pr;
     make_proj<NC>(e0, e1, false, false, pr);
     u64 idx = 0;
@@ -428,7 +430,7 @@ struct State6 {
 __device__ __forceinline__ void mode6(const float (&xs)[4][16], bool perc, int uber,
                                       State6& st) {
   float f0[4], f1[4];
-  fit_line<4, 4>(xs, 0xFFFFu, true, f0, f1);
+  fit_line<4, 4>(xs, 0xFFFFu, true, 2, f0, f1);
   int q;
   const int nsteps = 2 + variant_slots(uber, q);
   u64 base = 0;
@@ -578,7 +580,7 @@ __device__ __forceinline__ void mode1(const float (&xs)[4][16], bool perc, int u
     for (int s = 0; s < 2; ++s) {
       const uint32_t mask = s ? (bits & 0xFFFFu) : (~bits & 0xFFFFu);
       float e0[3], e1[3];
-      fit_line<3, 3>(xs, mask, false, e0, e1);
+      fit_line<3, 3>(xs, mask, false, 2, e0, e1);
       Subset1 sub;
       u64 idx;
       quant1_subset(xs, perc, mask, e0, e1, sub, idx);

@@ -36,7 +36,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 HEADERS = ("bcx_common.cuh", "bc1_search.cuh", "bc4_search.cuh",
-           "bc7_common.cuh", "bc7_est.cuh", "bc7_fast_search.cuh")
+           "bc7_common.cuh", "bc7_est.cuh", "bc7_fast_search.cuh",
+           "bc7_full_search.cuh")
+_BC7_FULL = ("bcx_common.cuh", "bc7_common.cuh", "bc7_fast_search.cuh",
+             "bc7_full_search.cuh")
 # library -> (source, headers it includes)
 SOURCES = {
     "bc1": ("bc1_kernel.cu", ("bcx_common.cuh", "bc1_search.cuh")),
@@ -47,6 +50,9 @@ SOURCES = {
                 ("bcx_common.cuh", "bc7_common.cuh", "bc7_est.cuh")),
     "bc7_fast": ("bc7_fast_kernel.cu",
                  ("bcx_common.cuh", "bc7_common.cuh", "bc7_fast_search.cuh")),
+    "bc7_full_m02": ("bc7_full_m02_kernel.cu", _BC7_FULL),
+    "bc7_full_m1367": ("bc7_full_m1367_kernel.cu", _BC7_FULL),
+    "bc7_full_m45": ("bc7_full_m45_kernel.cu", _BC7_FULL),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -64,6 +70,8 @@ FUNCTIONS = {
     "bc5_encode": ("bc45", (_P, _L, _I, _P, _P, _I, _I, _I)),
     "bc7_est_topk": ("bc7_est", (_P, _L, _I, _I, _P, _I, _I, _I, _I, _P)),
     "bc7_fast_encode": ("bc7_fast", (_P, _L, _P, _I, _I, _I, _P, _P)),
+    **{fn: (fn, (_P, _L, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P))
+       for fn in ("bc7_full_m02", "bc7_full_m1367", "bc7_full_m45")},
 }
 
 _lock = threading.Lock()
@@ -145,7 +153,7 @@ def ensure_built() -> dict:
 def launch(name: str, *args) -> None:
     """Call the C function ``name`` on the current stream. Tensors are passed
     by their data pointer; a ctypes array (a short host-side list) passes as
-    it is. Raises if the launch is refused."""
+    it is, None as a null pointer. Raises if the launch is refused."""
     ensure_built()
     lib, _ = FUNCTIONS[name]
     fn = getattr(_libs[lib], name)

@@ -32,7 +32,8 @@ from .bc4 import F32, I32
 # launches of the CUDA kernel made by the wrapper below
 LAUNCHES = {"bc7_est": 0}
 
-MAX_K = 8                 # running-best slots a CUDA thread keeps
+MAX_K = 16                # most ids the CUDA kernel returns (its largest
+                          # running-best slot count)
 _BIG = 3.4e38
 
 
@@ -167,7 +168,12 @@ def estimate_topk(blocks: torch.Tensor, *, chans: int, subsets: int, plist,
                   estimator: str = "bounds") -> torch.Tensor:
     """(N,16,4) float32 blocks in [0,1] -> (N, min(k, len(plist))) int32
     partition ids of ``plist`` with the smallest estimates, best first; of
-    equal estimates the one earlier in ``plist`` ranks first."""
+    equal estimates the one earlier in ``plist`` ranks first.
+
+    The CUDA kernel returns at most ``MAX_K`` (16) ids, which covers every
+    ``k`` the encoders ask for (the full BC7 encoder's largest is 9, at quality
+    above 0.75 with performance below 1); a larger ``k`` on a CUDA tensor
+    raises ``ValueError``. The plain version on a CPU tensor takes any ``k``."""
     _check(blocks, chans, subsets, plist, levels, k, estimator)
     if blocks.device.type == "cpu":
         return estimate_topk_plain(blocks, chans=chans, subsets=subsets,

@@ -242,11 +242,10 @@ def _quant_pbit(e, bits, p):
 
 
 def _take(take, cand, best):
-    """Per-block select over a tuple of tensors / lists of tensors."""
-    return tuple(
-        ([torch.where(take, a, b) for a, b in zip(cn, bs)]
-         if isinstance(cn, list) else torch.where(take, cn, bs))
-        for cn, bs in zip(cand, best))
+    """Per-block select over tensors in (nested) tuples and lists."""
+    if isinstance(cand, (list, tuple)):
+        return type(cand)(_take(take, c, b) for c, b in zip(cand, best))
+    return torch.where(take, cand, best)
 
 
 def _pbit_rows(es, bits):
@@ -363,14 +362,17 @@ def _pack_mode6(st):
 
 # --------------------------------------------------------------- mode 1 ---
 
-def _fit_line3_masked(xs3, m, iters):
-    """Masked 3-channel PCA + least-squares fit; m is the (16,N) 0/1 mask."""
+def _fit_masked(xs, m, levels, iters):
+    """Masked PCA + least-squares fit of 3 or 4 channels; m is the (16,N) 0/1
+    mask, ``levels`` the palette's interpolation levels. The axis falls back
+    to 1/sqrt(channels) per component where it vanishes."""
+    chans = len(xs)
     cnt = torch.clamp(_sum16(m), min=1.0)
-    mean = [_sum16(x * m) / cnt for x in xs3]
-    cen = [(x - mn) * m for x, mn in zip(xs3, mean)]
+    mean = [_sum16(x * m) / cnt for x in xs]
+    cen = [(x - mn) * m for x, mn in zip(xs, mean)]
     cov = {(a, b): _sum16(cen[a] * cen[b])
-           for a in range(3) for b in range(a, 3)}
-    axis = _normalise(_power_axis(cov, 3), 0.57735026)
+           for a in range(chans) for b in range(a, chans)}
+    axis = _normalise(_power_axis(cov, chans), 1.0 / chans ** 0.5)
     t = _chain([c * a for c, a in zip(cen, axis)])
     tmin = _min16(torch.where(m > 0, t, 1e30))
     tmax = _max16(torch.where(m > 0, t, -1e30))
@@ -379,8 +381,8 @@ def _fit_line3_masked(xs3, m, iters):
     e0 = [mn + tmin * a for mn, a in zip(mean, axis)]
     e1 = [mn + tmax * a for mn, a in zip(mean, axis)]
     for _ in range(iters):
-        alpha = _lut(LV3, _proj_quantize(xs3, e0, e1, LV3), F32)
-        e0, e1 = _lsq_multi(xs3, alpha, m, e0, e1)
+        alpha = _lut(levels, _proj_quantize(xs, e0, e1, levels), F32)
+        e0, e1 = _lsq_multi(xs, alpha, m, e0, e1)
     return e0, e1
 
 
@@ -399,19 +401,7 @@ def _subset_masks(sub, s):
 def _merge1(cand, state):
     """Mode-1 state: (err, errs[2], pid, idx, sub, q0[2][3], q1[2][3],
     pb[2])."""
-    if state is None:
-        return cand
-    take = cand[0] < state[0]
-    out = []
-    for cn, bs in zip(cand, state):
-        if isinstance(cn, list) and isinstance(cn[0], list):
-            out.append([[torch.where(take, a, b) for a, b in zip(x, y)]
-                        for x, y in zip(cn, bs)])
-        elif isinstance(cn, list):
-            out.append([torch.where(take, a, b) for a, b in zip(cn, bs)])
-        else:
-            out.append(torch.where(take, cn, bs))
-    return tuple(out)
+    return cand if state is None else _take(cand[0] < state[0], cand, state)
 
 
 def _solid_endpoints(x01):
@@ -479,7 +469,7 @@ def _mode1(xs3, ms3, perceptual, part_ids, uber, solid):
         idx_all = None
         for s in (0, 1):
             m = _subset_masks(sub, s)
-            e0, e1 = _fit_line3_masked(xs3, m, 2)
+            e0, e1 = _fit_masked(xs3, m, LV3, 2)
             err, q0s, q1s, pb, idx = _quant1_subset(ms3, m, e0, e1,
                                                     perceptual)
             errs.append(err)

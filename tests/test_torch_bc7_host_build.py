@@ -1,7 +1,8 @@
 """The BC7 CUDA searches, compiled for the host, against the plain versions.
 
-``csrc/bc7_est.cuh`` and ``csrc/bc7_fast_search.cuh`` are plain C++ apart from
-the CUDA keywords, so ``g++`` builds them against a small stub of
+``csrc/bc7_est.cuh``, ``csrc/bc7_fast_search.cuh`` and
+``csrc/bc7_full_search.cuh`` are plain C++ apart from the CUDA keywords (the
+full search's kernel and launcher sit behind ``__CUDACC__``), so ``g++`` builds them against a small stub of
 ``cuda_runtime.h`` and a loop over blocks takes the place of the launch. That
 puts the arithmetic of the kernels under test where there is no card: the same
 numpy blocks go through the host build and through the plain PyTorch versions,
@@ -9,18 +10,21 @@ and the partition ids, the words and the errors must be equal on every block
 (``-ffp-contract=off`` stands in for ``nvcc -fmad=false``; both sides divide,
 round half to even and take correctly rounded square roots). The launch
 itself, the loads and the resource use are still only checked on the card
-(``chip_smoke.py``, ``tests/test_torch_cuda.py``).
+(``chip_smoke.py``, ``tests/test_torch_cuda.py``). For the full search this
+is the only check of the kernel's arithmetic at the main path's budget
+(quality 1.0) that runs where there is no card.
 """
 import ctypes
 import shutil
 import subprocess
+from functools import lru_cache
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from gfx_imagecompress_tpu_torch.kernels import bc7_est, bc7_fast
+from gfx_imagecompress_tpu_torch.kernels import bc7_est, bc7_fast, bc7_full
 from gfx_imagecompress_tpu_torch.tables.bc7_tables import P2
 
 from conftest import photo_rgba
@@ -48,11 +52,29 @@ inline int __popc(unsigned v) { return __builtin_popcount(v); }
 using std::max;
 using std::min;
 enum { cudaErrorInvalidValue = 1, cudaErrorMisalignedAddress = 716 };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return uint4{a, b, c, d};
+}
 """
 
 HARNESS = r"""
 #include "bc7_est.cuh"
 #include "bc7_fast_search.cuh"
+#include "bc7_full_search.cuh"
+
+template <int NC>
+static void est_block(const float* x, int subsets, const bc7::PartList& pl,
+                      int levels, int k, int pca, int* ids) {
+  float xs[NC][16];
+  bcx::load_block<NC>(x, 4, xs);
+  const int slots = bc7::slots_for(k);
+  if (slots == 4)
+    bc7::estimate_topk<NC, 4>(xs, subsets, pl, levels, k, pca != 0, ids);
+  else if (slots == 9)
+    bc7::estimate_topk<NC, 9>(xs, subsets, pl, levels, k, pca != 0, ids);
+  else
+    bc7::estimate_topk<NC, 16>(xs, subsets, pl, levels, k, pca != 0, ids);
+}
 
 extern "C" void host_est(const float* x, long long n, int chans, int subsets,
                          const int* plist, int nplist, int levels, int k,
@@ -61,14 +83,29 @@ extern "C" void host_est(const float* x, long long n, int chans, int subsets,
   pl.n = nplist;
   for (int j = 0; j < 64; ++j) pl.id[j] = j < nplist ? plist[j] : 0;
   for (long long i = 0; i < n; ++i) {
-    if (chans == 3) {
-      float xs[3][16];
-      bcx::load_block<3>(x + i * 64, 4, xs);
-      bc7::estimate_topk<3>(xs, subsets, pl, levels, k, pca != 0, ids + i * k);
-    } else {
-      float xs[4][16];
-      bcx::load_block<4>(x + i * 64, 4, xs);
-      bc7::estimate_topk<4>(xs, subsets, pl, levels, k, pca != 0, ids + i * k);
+    if (chans == 3)
+      est_block<3>(x + i * 64, subsets, pl, levels, k, pca, ids + i * k);
+    else
+      est_block<4>(x + i * 64, subsets, pl, levels, k, pca, ids + i * k);
+  }
+}
+
+// the body of the full search's kernel of `mode`, one block after the other
+extern "C" void host_full(const float* x, long long n, int mode,
+                          const int* ids, int nids, int iters, int shake,
+                          int uber, int keep, const unsigned char* bar,
+                          int merge, unsigned* words, float* err) {
+  uint4* w = reinterpret_cast<uint4*>(words);
+  for (long long i = 0; i < n; ++i) {
+    switch (mode) {
+#define HOST_FULL(M)                                                       \
+  case M:                                                                  \
+    bc7::full_block<M>(x, i, ids, nids, iters, shake, uber, keep, bar,     \
+                       merge, w, err);                                     \
+    break;
+      HOST_FULL(0) HOST_FULL(1) HOST_FULL(2) HOST_FULL(3)
+      HOST_FULL(4) HOST_FULL(5) HOST_FULL(6) HOST_FULL(7)
+#undef HOST_FULL
     }
   }
 }
@@ -124,7 +161,9 @@ def host_lib(tmp_path_factory):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.host_est.argtypes = [p, ll, i, i, p, i, i, i, i, p]
     lib.host_fast.argtypes = [p, ll, p, i, i, i, p, p]
+    lib.host_full.argtypes = [p, ll, i, p, i, i, i, i, i, p, i, p, p]
     lib.host_est.restype = lib.host_fast.restype = None
+    lib.host_full.restype = None
     return lib
 
 
@@ -180,6 +219,10 @@ EST_CASES = {
                                 levels=4, k=8, estimator="pca"),
     "rgba_2sub_bounds_k3": dict(chans=4, subsets=2, plist=(5, 40, 2, 63, 9),
                                 levels=4, k=3),
+    "rgb_2sub_64_k9": dict(chans=3, subsets=2, plist=tuple(range(64)),
+                           levels=8, k=9),
+    "rgb_3sub_16_k16": dict(chans=3, subsets=3, plist=tuple(range(16)),
+                            levels=8, k=16),
 }
 
 
@@ -219,3 +262,101 @@ def test_host_built_search_equals_plain_version(host_lib, name):
     same = (words == wp.numpy().view(np.uint32)).all(axis=1)
     assert same.all(), f"{(~same).sum()} of {same.size} blocks differ"
     np.testing.assert_array_equal(err, ep.numpy())
+
+
+# -------------------------------------------------------- the full search ---
+
+def _full_blocks():
+    """32 blocks: photo, alpha gradient, solid, 0/1 alpha, two-colour splits
+    along shapes of every anchor class; every third block opaque."""
+    rng = np.random.default_rng(5)
+    photo = _to_blocks(photo_rgba(8, 16, seed=3))                       # 8
+    grad = _to_blocks(photo_rgba(8, 16, seed=4))                        # 8
+    grad[..., 3] = np.linspace(0.05, 0.95, 16)[None, :]
+    solid = np.repeat(rng.random((4, 1, 4), np.float32), 16, 1)         # 4
+    solid[:2, :, 3] = 1.0
+    zo = rng.integers(0, 2, (4, 16, 4)).astype(np.float32)              # 4
+    two = []
+    for shape in (0, 13, 17, 18, 34, 47, 22, 60):                       # 8
+        c = rng.random((2, 4), np.float32)
+        pick = [(P2[shape] >> p) & 1 for p in range(16)]
+        two.append(c[pick] + rng.normal(0, 0.01, (16, 4)))
+    x = np.clip(np.concatenate([photo, grad, solid, zo, np.stack(two)]),
+                0, 1).astype(np.float32)
+    x[::3, :, 3] = 1.0
+    assert x.shape == (32, 16, 4)
+    return np.ascontiguousarray(x)
+
+
+def _host_search(lib, x):
+    """bc7_full.bc7_mode_search's contract, run by the host build."""
+    def search(blocks, mode, ids, *, iters, shake, uber, keep=1, bar=None,
+               out=None):
+        n = x.shape[0]
+        if isinstance(ids, torch.Tensor):
+            ids_np = np.ascontiguousarray(ids.numpy(), np.int32)
+            idp, nids = ids_np.ctypes.data, ids_np.shape[1]
+        else:
+            idp, nids = None, ids or 0
+        bar_np = None if bar is None else np.ascontiguousarray(
+            bar.numpy(), np.uint8)
+        if out is None:
+            words = np.zeros((n, 4), np.uint32)
+            err = np.zeros((n,), np.float32)
+        else:
+            words = out[0].numpy().view(np.uint32)
+            err = out[1].numpy()
+        lib.host_full(x.ctypes.data, n, mode, idp, nids, iters, shake, uber,
+                      keep, None if bar_np is None else bar_np.ctypes.data,
+                      int(out is not None), words.ctypes.data,
+                      err.ctypes.data)
+        if out is not None:
+            return out
+        return torch.from_numpy(words.view(np.int32)), torch.from_numpy(err)
+    return search
+
+
+FULL_BUDGETS = {"q1": dict(quality=1.0),
+                "override": dict(quality=0.25, _plist=(0, 1, 5, 9, 13),
+                                 _topk=2, _shake=1, _uber=1)}
+
+
+@lru_cache(maxsize=None)
+def _full_plan(budget):
+    kw = FULL_BUDGETS[budget]
+    return bc7_full._plan(kw["quality"], 0xFF, 1.0, kw.get("_plist"),
+                          kw.get("_topk"), kw.get("_shake"), kw.get("_uber"))
+
+
+@pytest.mark.parametrize("mode", range(8))
+@pytest.mark.parametrize("budget", list(FULL_BUDGETS))
+def test_host_built_full_search_equals_plain_version(host_lib, budget, mode):
+    x = _full_blocks()
+    xt = torch.from_numpy(x)
+    plan = _full_plan(budget)
+    cfg = plan.shortlists.get(mode)
+    ids = (bc7_est.estimate_topk_plain(xt, **cfg) if isinstance(cfg, dict)
+           else cfg)
+    bar = (bc7_full._combined_alpha_bar(xt, True, True) if mode >= 6
+           else None)
+    kw = dict(iters=plan.iters, shake=plan.shake, uber=plan.uber,
+              keep=plan.keep, bar=bar)
+    wh, eh = _host_search(host_lib, x)(xt, mode, ids, **kw)
+    wp, ep = bc7_full.bc7_mode_search_plain(xt, mode, ids, **kw)
+    same = (wh == wp).all(dim=1)
+    assert same.all(), f"{int((~same).sum())} of {same.numel()} blocks differ"
+    np.testing.assert_array_equal(eh.numpy(), ep.numpy())
+
+
+def test_host_built_full_entry_equals_plain_version(host_lib):
+    """All eight modes merged in the host build's own running best, with the
+    mode 6/7 bar, against the plain entry at the top tier."""
+    x = _full_blocks()
+    xt = torch.from_numpy(x)
+    plan = _full_plan("q1")
+    bar = bc7_full._combined_alpha_bar(xt, True, True)
+    wh, eh = bc7_full._encode(xt, plan, bar, bc7_est.estimate_topk_plain,
+                              _host_search(host_lib, x))
+    wp, ep = bc7_full.encode_bc7_blocks_plain(xt)
+    assert torch.equal(wh, wp)
+    np.testing.assert_array_equal(eh.numpy(), ep.numpy())

@@ -152,7 +152,8 @@ def _c_array(text, name):
                                                       body)]
 
 
-@pytest.mark.parametrize("name", ["P2", "P3", "ANCHOR2"])
+@pytest.mark.parametrize("name", ["P2", "P3", "ANCHOR2", "ANCHOR3_1",
+                                  "ANCHOR3_2"])
 def test_cuda_header_tables_equal_the_python_tables(name):
     text = (CSRC / "bc7_common.cuh").read_text()
     assert tuple(_c_array(text, name)) == getattr(ttab, name)
@@ -171,7 +172,8 @@ def test_cuda_weight_formulas_give_the_weight_tables():
     """bc7_common.cuh computes the interpolation weights instead of storing
     them; the formulas are read from the source and evaluated here."""
     text = (CSRC / "bc7_common.cuh").read_text()
-    for fn, table in (("weight4", ttab.WEIGHTS4), ("weight3", ttab.WEIGHTS3)):
+    for fn, table in (("weight4", ttab.WEIGHTS4), ("weight3", ttab.WEIGHTS3),
+                      ("weight2", ttab.WEIGHTS2)):
         expr = re.search(rf"int {fn}\(int i\) \{{ return (.*?); \}}",
                          text).group(1)
         assert re.fullmatch(r"[\di\s()*+/]+", expr), expr

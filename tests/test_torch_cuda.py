@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from gfx_imagecompress_tpu_torch import kernels
-from gfx_imagecompress_tpu_torch.kernels import bc1, bc4, bc7_est, bc7_fast
+from gfx_imagecompress_tpu_torch.kernels import (bc1, bc4, bc7_est, bc7_fast,
+                                                 bc7_full)
 
 pytestmark = pytest.mark.cuda
 
@@ -78,6 +79,10 @@ EST_CASES = {
                      k=4),
     "rgba_pca": dict(chans=4, subsets=2, plist=tuple(range(64)), levels=4,
                      k=8, estimator="pca"),
+    "rgb_2sub_k9": dict(chans=3, subsets=2, plist=tuple(range(64)), levels=8,
+                        k=9),
+    "rgb_3sub_k16": dict(chans=3, subsets=3, plist=tuple(range(16)),
+                         levels=8, k=16),
 }
 
 
@@ -101,7 +106,7 @@ def test_bc7_wrappers_raise_on_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         bc7_est.estimate_topk(x.double(), **cfg)
     with pytest.raises(ValueError):
-        bc7_est.estimate_topk(x, **dict(cfg, k=9))
+        bc7_est.estimate_topk(x, **dict(cfg, k=bc7_est.MAX_K + 1))
     ids = bc7_est.estimate_topk(x, **cfg)
     with pytest.raises(ValueError):
         bc7_fast.bc7_fast_search(x, ids.long())
@@ -119,3 +124,31 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
         bc4.encode_bc4_blocks(x[:, :, 0])             # not contiguous
     with pytest.raises(ValueError):
         bc1.encode_bc3_blocks(x[:, :, :3].contiguous())
+
+
+FULL_CASES = {
+    "q1_all_modes": dict(),
+    "q1_performance_0.3": dict(performance=0.3),
+    "q05_unrestricted": dict(quality=0.5, colour_restrict=False,
+                             alpha_restrict=False),
+    "q025_override": dict(quality=0.25, _plist=(0, 1, 5), _topk=2, _shake=1,
+                          _uber=1),
+    **{f"q1_mode{m}": dict(mode_mask=1 << m) for m in range(8)},
+}
+
+
+@pytest.mark.parametrize("name", list(FULL_CASES))
+def test_full_bc7_kernel_equals_plain_version(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.from_numpy(_blocks(512)).cuda()
+    x[::2, :, 3] = 1.0
+    kw = FULL_CASES[name]
+    before = kernels.launch_counts()["bc7_full"]
+    wk, ek = bc7_full.encode_bc7_blocks(x, **kw)
+    torch.cuda.synchronize()
+    mask = kw.get("mode_mask", 0xFF)
+    assert kernels.launch_counts()["bc7_full"] == before + bin(mask).count("1")
+    wp, ep = bc7_full.encode_bc7_blocks_plain(x, **kw)
+    assert (wk == wp).all(dim=1).double().mean().item() >= 0.99
+    torch.testing.assert_close(ek, ep, rtol=1e-5, atol=1e-3)

@@ -29,7 +29,8 @@ def test_port_has_the_expected_modules():
             "kernels/bc4.py", "kernels/_build.py", "io/dds.py",
             "bitpack_dyn.py", "decode/bc7.py", "tables/__init__.py",
             "tables/bc7_tables.py", "kernels/bc7_est.py",
-            "kernels/bc7_fast.py"} <= names
+            "kernels/bc7_fast.py", "kernels/bc7_full.py",
+            "pipeline/chunking.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -107,9 +108,10 @@ def test_cpu_wrappers_never_touch_the_build_module():
     for ct in ("DXBC1", "DXBC2", "DXBC3", "DXBC4", "DXBC5"):
         assert tgic.compress(tgic.CompressType[ct], img) is not None
     assert tgic.compress(tgic.CompressType.DXBC7, img, fast=True) is not None
+    assert tgic.compress(tgic.CompressType.DXBC7, img) is not None
     assert kernels.launch_counts() == {
         "bc1": 0, "bc2": 0, "bc3": 0, "bc4": 0, "bc5": 0, "bc7_est": 0,
-        "bc7_fast": 0}
+        "bc7_fast": 0, "bc7_full": 0}
 
 
 def test_build_module_names_sources_that_exist():
@@ -152,6 +154,7 @@ def test_c_signatures_match_the_argument_tables():
     kinds = {"const float*": ctypes.c_void_p, "uint32_t*": ctypes.c_void_p,
              "float*": ctypes.c_void_p, "void*": ctypes.c_void_p,
              "const int*": ctypes.c_void_p, "int*": ctypes.c_void_p,
+             "const uint8_t*": ctypes.c_void_p,
              "long long": ctypes.c_longlong, "int": ctypes.c_int,
              "float": ctypes.c_float}
     for fn, (lib, argtypes) in _build.FUNCTIONS.items():
