@@ -8,9 +8,9 @@
 
 Builds the CUDA kernels from the sources in this checkout, holds each kernel
 against its plain PyTorch version on the card, drives ``compress()`` for
-BC1-BC5, for the fast BC7 path and for the full BC7 path at the sizes
-BASELINE.json names, decodes and checks every result, and shows with the
-launch counters that each path went through its kernels.
+BC1-BC5, for the fast BC7 path, for the full BC7 path and for BC6H (unsigned
+and signed) at the sizes BASELINE.json names, decodes and checks every result,
+and shows with the launch counters that each path went through its kernels.
 Each phase prints one JSON line. Any failed check makes the exit code non-zero
 and suppresses the final ``{"ok": true, ...}`` line. Without a CUDA device
 the script exits non-zero at once; it never computes on the CPU.
@@ -146,6 +146,47 @@ def mixed_blocks(n_total, seed=7):
     return np.ascontiguousarray(out)
 
 
+def hdr_field(h, w, seed=0, signed=False):
+    """Environment-map-like HDR field (the JAX package's test fixture):
+    smooth exponent variation with multiplicative noise; signed negates
+    green."""
+    r = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([np.exp(np.sin(x * 0.09) * 2.0),
+                    np.exp(np.cos(y * 0.07) * 1.5) * 0.3,
+                    (np.sin((x + y) * 0.05) * 0.5 + 0.6) * 10.0], axis=-1)
+    img *= (1.0 + r.normal(0, 0.01, img.shape)).astype(np.float32)
+    if signed:
+        img[..., 1] *= -1.0
+    return img.astype(np.float32)
+
+
+def mixed_hdr_blocks(n_total, seed=9, signed=False):
+    """(N,16,3) float32 HDR blocks: environment-map blocks with
+    multiplicative noise, and the hard cases of a BC6H search - solid blocks
+    and zeros, values at and above 65504 and +inf, negatives (the unsigned
+    path clamps them to 0), values in the half subnormal range, two-level
+    contrast, and magnitudes spread over the whole half range."""
+    r = np.random.default_rng(seed)
+    hard = 512
+    parts = [np.repeat(r.random((hard, 1, 3)) * 100.0, 16, 1),
+             np.zeros((16, 16, 3)),
+             r.choice([65504.0, 65519.0, 65520.0, 70000.0, np.inf, 1000.0],
+                      (hard, 16, 3)),
+             r.normal(0, 5.0, (hard, 16, 3)),
+             r.random((hard, 16, 3)) * 6e-5,
+             np.where(r.random((hard, 16, 3)) < 0.5, 60000.0, 1e-4),
+             np.exp(r.uniform(-14, 11, (hard, 16, 3)))
+             * np.where(r.random((hard, 16, 3)) < 0.3, -1.0, 1.0)]
+    n_env = n_total - sum(p.shape[0] for p in parts)
+    side = 4 * int(np.ceil(np.sqrt(n_env)))
+    env = to_blocks_np(hdr_field(side, side, seed=seed, signed=signed))
+    parts.append(env[:n_env])
+    out = np.concatenate(parts, 0).astype(np.float32)
+    assert out.shape[0] == n_total
+    return np.ascontiguousarray(out)
+
+
 # ------------------------------------------------------------- measuring ---
 
 def time_ms(fn, reps):
@@ -161,6 +202,24 @@ def time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def launch_ms(before, launch, reps):
+    """Mean time in ms of ``launch()`` alone, CUDA events around it, over
+    ``reps`` iterations of ``before()`` then ``launch()``, after one
+    warm-up iteration."""
+    before()
+    launch()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for a, b in ev:
+        before()
+        a.record()
+        launch()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in ev) / reps
 
 
 def psnr(a, b):
@@ -433,6 +492,65 @@ def ops_bc7_full(unbarred_frac=0.0, **budget):
     return n
 
 
+def ops_bc6h(topk=4, iters=2, shake=1, mode_mask=0xFFFF, fallback=False):
+    """Operations of the BC6H search for one block, counted like
+    ``ops_bc7_full``: the work-domain floats once per block, per-pixel work
+    over the pixels a pass visits (each pixel against its own region's
+    palette, and in its own region's fit), pixel-independent values (a
+    palette's decoded entries, a fit's levels) once per candidate."""
+    from gfx_imagecompress_tpu_torch.tables.bc6h_tables import BC6H_MODES
+    two = [mi for mi in range(10) if (mode_mask >> mi) & 1]
+    one = [mi for mi in range(10, 14) if (mode_mask >> mi) & 1]
+
+    def fit(levels, regions):
+        # per pixel, once over the 16 (each pixel in its own region's fit):
+        # the mask and count (2), the means' terms (6), centring and
+        # covariance (18), projection and extremes (9), and per
+        # least-squares round the nearest level (11 per level) and the
+        # normal-equation terms (25); per region: the means' divisions (3),
+        # 8 power rounds of 30, normalise 15, ends 12, and per least-squares
+        # round the levels (9 each) and the solve (31)
+        px = 16 * (2 + 6 + 18 + 9) + iters * 16 * (11 * levels + 25)
+        reg = 3 + 8 * 30 + 15 + 12 + iters * (9 * levels + 31)
+        return px + regions * reg
+
+    def palette(entries, regions):
+        # decoded entries: per entry and channel the integer lerp (5), the
+        # finish (3) and the conversion (1); per pixel: per entry 3 sub, 3
+        # mul, 2 add, the compare and 2 selects, then the sum and the index
+        return regions * entries * 27 + 16 * (11 * entries + 8)
+
+    def shake_round(entries, regions):
+        # per channel 9 evaluations (the start and 8 steps): 2 unquantised
+        # codes (12) per region, 13 per pixel (lerp, finish, conversion,
+        # difference, square, sum); clamps and the race, 7 per step; the
+        # weights 3 per pixel; the requantise palette
+        return (3 * (9 * 12 * regions + 9 * 13 * 16 + 8 * 7) + 16 * 3
+                + 12 * regions + palette(entries, regions))
+
+    n = 48 + 300                      # work-domain floats; the pack
+    if two:
+        # the estimate of 32 shapes: per pixel the mean (3), the box (9),
+        # the projection and its extremes (10), the quantised projection and
+        # the error (26); per region 19; the top-k, 64 per kept shape
+        n += 32 * (16 * 48 + 2 * 19) + 64 * topk
+        groups = len({BC6H_MODES[mi].base_bits for mi in two})
+        # per kept shape: the two regions' fits; per precision group the
+        # quantised and unquantised endpoints (168), both regions' palettes,
+        # the swaps (100); per mode the gate and the merge (50)
+        n += topk * (fit(8, 2) + groups * (168 + palette(8, 2) + 100)
+                     + 50 * len(two))
+        if shake:
+            n += shake * shake_round(8, 2) + 100
+    if one:
+        n += fit(16, 1) + len(one) * (84 + palette(16, 1) + 60)
+        if shake:
+            n += shake * shake_round(16, 1) + 60
+    if fallback:
+        n += 48 + 24 + palette(16, 1)
+    return n
+
+
 def bound(n_blocks, bytes_per_block, ops_per_block):
     t_bytes = n_blocks * bytes_per_block / PEAK_BYTES_PER_S * 1e3
     t_ops = n_blocks * ops_per_block / PEAK_F32_OPS_PER_S * 1e3
@@ -460,6 +578,16 @@ def bc7_metric():
 def decoded_error(name, blocks, words, kw, decode):
     """The error of the emitted words, measured with the port's decoder, in
     the units the encoder reports (float64 on the card)."""
+    if name == "bc6h":
+        # in half-int space; signed: the signed decoded integers
+        from gfx_imagecompress_tpu_torch.decode.bc6h import decode_bc6h_half
+        from gfx_imagecompress_tpu_torch.kernels.bc6h import f32_to_half_int
+        signed = kw.get("signed", False)
+        hd = decode_bc6h_half(words, signed).long()
+        if signed:
+            hd = torch.where(hd >= 0x8000, -(hd & 0x7FFF), hd)
+        tgt = f32_to_half_int(blocks, signed).long()
+        return ((tgt - hd).double() ** 2).sum((1, 2))
     src = blocks.double() * 255.0
     if name == "bc7_full":
         from gfx_imagecompress_tpu_torch.decode.bc7 import decode_bc7
@@ -508,14 +636,15 @@ def compare(name, label, wrapper, plain, x, kw, decode, reps, exact_cols=(),
             extra=None):
     """Run kernel and plain version on the same CUDA tensor; check (a) the
     reported error against the decoder, (b) summed error both ways, (c) the
-    fraction of identical blocks. Returns a result dict with timings."""
+    fraction of identical blocks. Returns a result dict with timings; the
+    kernel is timed before the plain version runs, as the main path has it."""
     wk, ek = wrapper(x, **kw)
+    kernel_ms = time_ms(lambda: wrapper(x, **kw), reps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     wp, ep = plain(x, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    kernel_ms = time_ms(lambda: wrapper(x, **kw), reps)
     same = (wk == wp).all(1)
     frac = same.double().mean().item()
     max_abs = (ek - ep).abs().max().item()
@@ -533,9 +662,13 @@ def compare(name, label, wrapper, plain, x, kw, decode, reps, exact_cols=(),
     for lo, hi, what in exact_cols:
         check((wk[:, lo:hi] == wp[:, lo:hi]).all().item(),
               f"{tag}: {what} words not bit-identical")
+    if name == "bc6h":
+        check(max_abs == 0.0, f"{tag}: errors differ from the plain version "
+              f"by up to {max_abs}")
     row = {"kernel": name, "budget": label, "n_blocks": int(x.shape[0]),
            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
            "identical_frac": frac, "max_abs_err": max_abs,
+           "reported_equals_decoded": bool(tol_ok),
            "sum_err_kernel": sk, "sum_err_plain": sp}
     if extra is not None:
         row.update(extra(tag, x, wk, kw) or {})
@@ -566,6 +699,20 @@ def barred_blocks_avoid_modes_6_7(tag, x, words, kw):
           f"{tag}: a block carries a mode the mask does not enable")
     return {"blocks_per_mode": torch.bincount(
         modes.long(), minlength=9)[:8].tolist()}
+
+
+def bc6h_modes_enabled(tag, x, words, kw):
+    """BC6H: every block carries a mode the mask enables; returns the count
+    of blocks per mode (1..14)."""
+    from gfx_imagecompress_tpu_torch.tables.bc6h_tables import BC6H_MODES
+    w0 = words[:, 0].long() & 0x1F
+    code = torch.where((w0 & 3) < 2, w0 & 3, w0)
+    mask = kw.get("mode_mask", 0xFFFF)
+    per_mode = [int((code == m.code).sum().item()) for m in BC6H_MODES]
+    check(sum(n for mi, n in enumerate(per_mode) if (mask >> mi) & 1)
+          == words.shape[0], f"{tag}: a block carries a mode the mask "
+          "does not enable")
+    return {"blocks_per_mode": per_mode}
 
 
 def compare_est(label, est, x, cfg, reps):
@@ -625,7 +772,7 @@ def main() -> int:
     from gfx_imagecompress_tpu_torch import kernels
     from gfx_imagecompress_tpu_torch.decode import bcn as decode
     from gfx_imagecompress_tpu_torch.decode import decode_image
-    from gfx_imagecompress_tpu_torch.kernels import (_build, bc1, bc4,
+    from gfx_imagecompress_tpu_torch.kernels import (_build, bc1, bc4, bc6h,
                                                      bc7_est, bc7_fast,
                                                      bc7_full)
     from gfx_imagecompress_tpu_torch.api import _rgba as api_rgba
@@ -657,9 +804,11 @@ def main() -> int:
                      bc7_fast.encode_bc7_fast_blocks_plain),
         "bc7_full": (bc7_full.encode_bc7_blocks,
                      bc7_full.encode_bc7_blocks_plain),
+        "bc6h": (bc6h.encode_bc6h_blocks, bc6h.encode_bc6h_blocks_plain),
     }
     exact = {"bc2": [(0, 2, "BC2 alpha")], "bc3": [(0, 2, "BC3 alpha")],
-             "bc4": [(0, 2, "BC4")], "bc5": [(0, 4, "BC5")]}
+             "bc4": [(0, 2, "BC4")], "bc5": [(0, 4, "BC5")],
+             "bc6h": [(0, 4, "BC6H")]}
 
     def inputs_for(name, rgba):
         if name == "bc4":
@@ -701,18 +850,32 @@ def main() -> int:
          n_mixed),
         *[("bc7_full", f"q1_mode{m}", {"mode_mask": 1 << m}, 8192)
           for m in range(8)],
+        # BC6H: every quality tier unsigned and signed, and at the top tier
+        # one region only, transformed two-region modes only (the solid-mean
+        # fallback), mode 10 only, mode 14 only
+        *[("bc6h", f"q{qq}_{'signed' if sg else 'unsigned'}",
+           {"quality": qq, "signed": sg}, n_mixed)
+          for qq in (0.3, 0.7, 0.8, 1.0) for sg in (False, True)],
+        *[("bc6h", f"q1_mask{mk:04x}", {"mode_mask": mk}, n_mixed)
+          for mk in (0x3C00, 0x1FF, 0x200, 0x2000)],
     ]
     # BC7 takes mode 1 only for opaque blocks: every other block is made
     # opaque so both modes meet every kind of content
     mixed7 = mixed.clone()
     mixed7[::2, :, 3] = 1.0
+    hdr_mixed = {sg: torch.from_numpy(mixed_hdr_blocks(
+        n_mixed, signed=sg)).to(dev) for sg in (False, True)}
     rows = []
     extras = {"bc7_fast": alpha_blocks_take_mode6,
-              "bc7_full": barred_blocks_avoid_modes_6_7}
+              "bc7_full": barred_blocks_avoid_modes_6_7,
+              "bc6h": bc6h_modes_enabled}
     for name, label, kw, n in budgets:
         wrapper, plain = wrappers[name]
         bc7 = name.startswith("bc7")
-        x = inputs_for(name, (mixed7 if bc7 else mixed)[:n].contiguous())
+        if name == "bc6h":
+            x = hdr_mixed[kw.get("signed", False)][:n].contiguous()
+        else:
+            x = inputs_for(name, (mixed7 if bc7 else mixed)[:n].contiguous())
         rows.append(compare(name, label, wrapper, plain, x, kw, decode,
                             reps=1 if args.quick else 3,
                             exact_cols=exact.get(name, ()),
@@ -927,6 +1090,101 @@ def main() -> int:
     full_counts = launched(("bc7_est", "bc7_full"))
     counts["bc7_full"] = full_counts["bc7_full"]
     counts["bc7_est_full_path"] = full_counts["bc7_est"]
+    # Fourth path: BC6H through compress(DXBC6H) (quality 1.0, all 14
+    # modes), unsigned and signed, from float16 RGBA textures as an RGBA16F
+    # file holds them.
+    bc6h_calls = [0]
+
+    def encode_hdr(img):
+        if img.device.type == "cuda":
+            bc6h_calls[0] += 1
+        return gic.compress(gic.CompressType.DXBC6H, img)
+
+    def hdr_psnr(out, img):
+        """HDR PSNR as the JAX package's quality bench defines it: decoded
+        half floats against the float32 source, peak = max - min(min, 0)."""
+        dec = decode_image(out)
+        src = img.data[..., :3].double()
+        peak = src.max().item() - min(src.min().item(), 0.0)
+        mse = torch.mean((dec.double() - src) ** 2).item()
+        return 10.0 * np.log10(peak ** 2 / max(mse, 1e-12))
+
+    def bc6h_floor(img):
+        """The plain version's HDR PSNR on the image's top-left 256x256
+        pixels (or all of a smaller image), on the card, less 0.5 dB."""
+        crop = gic.Image(data=img.data[:, :256, :256].contiguous(),
+                         signed=img.signed, hdr=True)
+        blocks = image_to_blocks(crop.data)[:, :, :3].contiguous()
+        words, _ = bc6h.encode_bc6h_blocks_plain(blocks, signed=img.signed)
+        fmt = (gic.BlockFormat.BC6H_SFLOAT if img.signed
+               else gic.BlockFormat.BC6H_UFLOAT)
+        out = gic.CompressedImage(
+            packed_to_grid(words, crop.slices, crop.height, crop.width, 4),
+            fmt, crop.width, crop.height, crop.slices)
+        return hdr_psnr(out, crop) - 0.5
+
+    def rgba16f(rgb):
+        """An RGB float field as the float16 RGBA texture a user hands in."""
+        a = np.ones(rgb.shape[:-1] + (1,), np.float32)
+        return np.concatenate([rgb, a], -1).astype(np.float16)
+
+    def drive_bc6h(label, arr, signed):
+        img = gic.Image.from_array(np.ascontiguousarray(arr), signed=signed,
+                                   hdr=True)                    # device=None
+        check(img.device.type == "cuda", f"{label}: image not on the card")
+        floor_db = bc6h_floor(img)
+        before = kernels.launch_counts()["bc6h"]
+        out = encode_hdr(img)
+        torch.cuda.synchronize()
+        check(kernels.launch_counts()["bc6h"] == before + 1,
+              f"{label}: compress() did not launch the BC6H kernel once")
+        want_fmt = (gic.BlockFormat.BC6H_SFLOAT if signed
+                    else gic.BlockFormat.BC6H_UFLOAT)
+        check(out.format == want_fmt, f"{label}: format {out.format}")
+        db = hdr_psnr(out, img)
+        s_, h, w, _ = arr.shape
+        by, bx = (h + 3) // 4, (w + 3) // 4
+        check(tuple(out.blocks.shape) == (s_, by, bx, 4),
+              f"{label}: grid shape {tuple(out.blocks.shape)}")
+        check(out.blocks.device.type == "cuda", f"{label}: blocks not on card")
+        check(len(out.tobytes()) == s_ * by * bx * 16,
+              f"{label}: byte length")
+        check(np.isfinite(db) and db > floor_db,
+              f"{label}: HDR PSNR {db:.2f} dB <= {floor_db:.2f}")
+        texels = s_ * h * w
+        ms = time_ms(lambda: encode_hdr(img), 1 if q else 20)
+        hdr_images[label] = img
+        main_rows.append({"case": label, "blocks": s_ * by * bx,
+                          "psnr_db": db, "psnr_floor_db": floor_db,
+                          "compress_ms": ms,
+                          "mtexel_per_s": texels / ms / 1e3})
+        shape_inputs[label] = image_to_blocks(img.data)[:, :, :3].contiguous()
+
+    hdr_images = {}
+    kernels.reset_launch_counts()
+    photo_hdr = np.exp(photo_rgba(side7, side7, seed=120)[..., :3] * 4.0)
+    signed_hdr = photo_hdr.copy()
+    signed_hdr[..., 1] *= -1.0
+    drive_bc6h(f"bc6h_uf_{side7}", rgba16f(photo_hdr)[None], False)
+    drive_bc6h(f"bc6h_sf_{side7}", rgba16f(signed_hdr)[None], True)
+    drive_bc6h("bc6h_uf_npot_13x257",
+               rgba16f(np.exp(photo_rgba(13, 257, seed=121)[..., :3]
+                              * 4.0))[None], False)
+    for sg in (False, True):
+        small_hdr = hdr_field(64, 64, seed=122, signed=sg)
+        a = encode_hdr(gic.Image.from_array(small_hdr, signed=sg, hdr=True))
+        b = encode_hdr(gic.Image.from_array(small_hdr, signed=sg, hdr=True,
+                                            device="cpu"))
+        check(a.tobytes() == b.tobytes(),
+              f"DXBC6H signed={sg}: card output differs from the CPU plain "
+              "version on a 64x64 image")
+    got = kernels.launch_counts()["bc6h"]
+    check(got == bc6h_calls[0] and got > 0,
+          f"BC6H path: {got} kernel launches for {bc6h_calls[0]} compress() "
+          "calls on the card")
+    counts["bc6h"] = got
+    counts["bc6h_compress_calls"] = bc6h_calls[0]
+
     psnr_of = {r["case"]: r["psnr_db"] for r in main_rows}
     check(psnr_of[f"bc7_full_{side7}"] >= psnr_of[f"bc7_fast_{side7}"],
           f"bc7_full_{side7}: RGB PSNR {psnr_of[f'bc7_full_{side7}']:.3f} dB "
@@ -939,7 +1197,7 @@ def main() -> int:
     shape_of = {"bc1": f"bc1_{side_big}", "bc2": "bc2_1k", "bc3": "bc3_1k",
                 "bc4": "bc4_512", "bc5": "bc5_512",
                 "bc7_fast": f"bc7_fast_{side7}",
-                "bc7_full": f"bc7_full_{side7}"}
+                "bc7_full": f"bc7_full_{side7}", "bc6h": f"bc6h_uf_{side7}"}
     # bytes per block: the input read once, words and error written once;
     # the shortlist's ids (4 per block on the main path) written by bc7_est
     # and read by bc7_fast
@@ -954,6 +1212,10 @@ def main() -> int:
         "bc7_full": ("gfx_imagecompress_tpu_torch/csrc/bc7_full_search.cuh",
                      "gfx_imagecompress_tpu/kernels/bc7_full_pallas.py:1015",
                      None),
+        # the (N,16,3) int32 half-ints read once, words and error written
+        "bc6h": ("gfx_imagecompress_tpu_torch/csrc/bc6h_kernel.cu",
+                 "gfx_imagecompress_tpu/kernels/bc6h_pallas.py:475",
+                 192 + 20),
         "bc1": ("gfx_imagecompress_tpu_torch/csrc/bc1_kernel.cu",
                 "gfx_imagecompress_tpu/kernels/bc1_pallas.py:534", 268),
         "bc2": ("gfx_imagecompress_tpu_torch/csrc/bc23_kernels.cu",
@@ -992,6 +1254,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "n_blocks": r["n_blocks"],
+            "share_of_bound": b_ms / r["kernel_ms"],
             "identical_frac": r["identical_frac"],
             "bytes_per_block": bytes_pb, "ops_per_block": ops_pb, **more}
 
@@ -1034,8 +1297,67 @@ def main() -> int:
                           blocks_per_mode=r["blocks_per_mode"],
                           unbarred_frac=unbarred)
 
+    def bc6h_kernel_row(reps):
+        """K6 on the half-ints of the main path's 1K images, unsigned and
+        signed, against its plain version; the row is the unsigned image's,
+        the signed one beside. ``ms`` is K6's launch as the main path runs
+        it, right after the half conversion (``encode_bc6h_blocks``), the
+        conversion not timed; ``ms_alone`` is K6 back to back on one tensor
+        of half-ints (the two differ: PERF.md). Around the comparison, the
+        whole compress() call and K6 alone are timed again
+        (``around_plain``): before and after the plain version."""
+        budget = dict(zip(("topk", "iters", "shake"), bc6h._budgets(1.0)))
+        res, around, main_ms = {}, {}, {}
+        for sg in (False, True):
+            label = f"bc6h_{'sf' if sg else 'uf'}_{side7}"
+            x, img = shape_inputs[label], hdr_images[label]
+            h = bc6h.f32_to_half_int(x, sg).contiguous()
+            compress_before = time_ms(lambda: encode_hdr(img), reps)
+            hc = [h]
+
+            def convert(x=x, sg=sg):
+                hc[0] = bc6h.f32_to_half_int(x, sg).contiguous()
+
+            main_ms[sg] = launch_ms(convert, lambda: bc6h.bc6h_search(
+                hc[0], signed=sg, mode_mask=0xFFFF, **budget), reps)
+
+            def search(xx, signed, h=h):
+                return bc6h.bc6h_search(h, signed=signed, mode_mask=0xFFFF,
+                                        **budget)
+
+            def search_plain(xx, signed, h=h):
+                return bc6h.bc6h_search_plain(h, signed=signed,
+                                              mode_mask=0xFFFF, **budget)
+
+            res[sg] = (x, compare(
+                "bc6h", f"main_shape_{'signed' if sg else 'unsigned'}",
+                search, search_plain, x, {"signed": sg}, decode, reps=reps,
+                exact_cols=exact["bc6h"], extra=bc6h_modes_enabled))
+            around["signed" if sg else "unsigned"] = {
+                "compress_ms_before": compress_before,
+                "kernel_ms_before": res[sg][1]["kernel_ms"],
+                "kernel_ms_after": time_ms(
+                    lambda: search(None, sg), reps),
+                "compress_ms_after": time_ms(lambda: encode_hdr(img), reps)}
+        x, r = res[False]
+        rs = res[True][1]
+        regs = [k for k in resources if k["lib"] == "bc6h"]
+        return kernel_row(
+            "bc6h", dict(r, kernel_ms=main_ms[False]), x, ops_bc6h(**budget),
+            launches_per_compress=1, ms_alone=r["kernel_ms"],
+            signed_ms=main_ms[True], signed_ms_alone=rs["kernel_ms"],
+            signed_plain_ms=rs["plain_ms"],
+            signed_identical_frac=rs["identical_frac"],
+            signed_max_abs_err=rs["max_abs_err"],
+            blocks_per_mode=r["blocks_per_mode"],
+            signed_blocks_per_mode=rs["blocks_per_mode"],
+            around_plain=around, resources=regs)
+
     final = []
     for name, (wrapper, plain) in wrappers.items():
+        if name == "bc6h":
+            final.append(bc6h_kernel_row(1 if q else 20))
+            continue
         blocks = shape_inputs[shape_of[name]]
         x = blocks[:, :, 0].contiguous() if name == "bc4" else blocks
         reps = 1 if q else (5 if x.shape[0] > 2e5 else 20)

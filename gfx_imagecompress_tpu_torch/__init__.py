@@ -3,9 +3,9 @@ with hand-written CUDA kernels for NVIDIA Hopper.
 
 The port of the JAX package beside it, module for module. Entry points run on
 the CUDA device unless the caller passes ``device="cpu"``, where the kernels'
-plain PyTorch versions run instead. Ported so far: ``compress()`` for
-BC1-BC5 and BC7 (the full search and the fast path) with decode; the BC6H
-entries exist and raise ``NotImplementedError`` (see ROADMAP.md).
+plain PyTorch versions run instead. ``compress()`` covers every codec of
+the JAX package - BC1-BC5, BC6H (signed and unsigned) and BC7 (the full search
+and the fast path) - with decode.
 """
 
 from .api import (compress, compress_amd_bc1, compress_amd_bc2,

@@ -17,8 +17,8 @@ fires the callback between row bands and honours cancellation between (not
 within) launches.
 
 BC7 is ported in both forms: the full multi-mode search (``compress_amd_bc7``)
-and the fast path (modes 1 + 6, ``compress_richgel999_bc7``). BC6H is not yet:
-its entries exist and raise ``NotImplementedError``.
+and the fast path (modes 1 + 6, ``compress_richgel999_bc7``); BC6H, signed and
+unsigned, is ``compress_amd_bc6h``.
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ from .image import CompressedImage, Image
 from .kernels.bc1 import (encode_bc1_blocks, encode_bc2_blocks,
                           encode_bc3_blocks)
 from .kernels.bc4 import encode_bc4_blocks, encode_bc5_blocks
+from .kernels.bc6h import encode_bc6h_blocks
 from .kernels.bc7_fast import encode_bc7_fast_blocks
 from .kernels.bc7_full import encode_bc7_blocks
 from .options import (AMDBackendOptions, BC1Options, BC6HOptions, BC7Options,
@@ -40,8 +41,6 @@ from .pipeline.blocks import image_to_blocks, packed_to_grid
 from .pipeline.chunking import encode_chunked
 
 ProgressFunc = Callable[[float], bool]  # returns True to cancel
-
-_NOT_PORTED = "not yet ported: see ROADMAP.md"
 
 
 def _grid(img: Image, words, wpb: int):
@@ -130,8 +129,30 @@ def compress_amd_bc6h(src: Image,
                       amd_options: Optional[AMDBackendOptions] = None,
                       options: Optional[BC6HOptions] = None
                       ) -> CompressedImage:
-    """Image_CompressAMDBC6H analog - not ported yet."""
-    raise NotImplementedError(_NOT_PORTED)
+    """Image_CompressAMDBC6H analog (amd_bc6h_compressor.cpp:10-90): the half
+    conversion and one search launch over all blocks; ``src.signed`` picks
+    BC6H_SFLOAT over BC6H_UFLOAT.
+
+    The reference has an argument-order bug that drops the mode mask
+    (amd_bc6h_compressor.cpp:28 / amd_bc6h_body.hpp:303); here the mask is
+    honoured. ``options`` carries the BC6H quality and the full 16-bit mode
+    mask; without it, ``amd_options`` gives its (8-bit in the reference)
+    mode mask at quality 1.0; without either, quality 1.0 and all modes.
+    """
+    if options is not None:
+        quality, mask = options.quality, options.mode_mask
+    elif amd_options is not None:
+        quality, mask = 1.0, amd_options.mode_mask
+    else:
+        quality, mask = 1.0, 0xFFFF
+    blocks = image_to_blocks(src.data)
+    words, _ = encode_bc6h_blocks(
+        blocks[:, :, :3].contiguous(), signed=src.signed, mode_mask=mask,
+        quality=quality)
+    fmt = (BlockFormat.BC6H_SFLOAT if src.signed
+           else BlockFormat.BC6H_UFLOAT)
+    return CompressedImage(_grid(src, words, 4), fmt, src.width, src.height,
+                           src.slices)
 
 
 def compress_amd_bc7(src: Image,
@@ -178,7 +199,7 @@ def compress(ctype: CompressType, src: Image,
 
     ``fast`` selects the bc7enc16-style path for BC7. Unimplemented codecs
     (ETC/ASTC - stubs in the C++ library too, imagecompress.cpp:40-44) return
-    None; BC6H raises until it is ported.
+    None.
     """
     if ctype == CompressType.DXBC1:
         return compress_amd_bc1(src)

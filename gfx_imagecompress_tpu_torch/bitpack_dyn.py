@@ -1,17 +1,18 @@
-"""Dynamic-offset bit-field reads over (N, W) packed words.
+"""Dynamic-offset bit-field ops over (N, W) packed words.
 
-BC7 index fields sit at *data-dependent* offsets (anchor pixels drop their
-index MSB, and anchor positions depend on the per-block partition id,
-amd_bc7_body.cpp:364-421). ``extract_dyn`` reads a field whose bit offset and
-width are per-block values, branch-free: the word index turns into a masked
-select over the W words. The writer (``insert_dyn``) comes with the BC6H
-packer, which is its only caller.
+BC7/BC6H index fields sit at *data-dependent* offsets (anchor pixels drop
+their index MSB, and anchor positions depend on the per-block partition id,
+amd_bc7_body.cpp:364-421). ``extract_dyn`` reads and ``insert_dyn`` writes a
+field whose bit offset (and width) are per-block values, branch-free: the
+word index turns into a masked select over the W words. The encoders' packers
+write their fields at static offsets (``bitpack.Sink``); ``insert_dyn`` is
+kept so that this module does what the JAX package's ``bitpack_dyn`` does.
 """
 from __future__ import annotations
 
 import torch
 
-from .bitpack import _u32
+from .bitpack import _u32, wrap_u32
 
 I64 = torch.int64
 
@@ -46,3 +47,28 @@ def extract_dyn(words: torch.Tensor, offset: torch.Tensor,
     m = torch.where(nb >= 32, 0xFFFFFFFF,
                     _shift_l(torch.ones_like(v), nb.expand_as(v)) - 1)
     return v & m
+
+
+def insert_dyn(words: torch.Tensor, value: torch.Tensor, offset: torch.Tensor,
+               nbits) -> torch.Tensor:
+    """OR ``value`` ((N,) any int) at per-block ``offset`` into (N, W) int32
+    word storage; returns new words. The caller guarantees that the field
+    fits in ``nbits`` (int or (N,)) and that the target bits are zero."""
+    n, w = words.shape
+    offset = offset.to(I64)
+    nb = torch.as_tensor(nbits, dtype=I64, device=words.device).expand(n)
+    m = torch.where(nb >= 32, 0xFFFFFFFF,
+                    _shift_l(torch.ones((n,), dtype=I64,
+                                        device=words.device), nb) - 1)
+    v = value.to(I64) & m
+    widx = offset // 32
+    sh = offset % 32
+    lo = _shift_l(v, sh)
+    hi = _shift_r(v, 32 - sh)
+    cols = []
+    for i in range(w):
+        add = torch.where(widx == i, lo, 0)
+        if i > 0:
+            add = add | torch.where(widx == i - 1, hi, 0)
+        cols.append(_u32(words[:, i]) | add)
+    return wrap_u32(torch.stack(cols, dim=1))

@@ -1,12 +1,14 @@
 """Bit-exact BCn block decoders (the round-trip oracle)."""
 
+from .bc6h import decode_bc6h
 from .bc7 import decode_bc7
 from .bcn import (decode_bc1, decode_bc2, decode_bc3, decode_bc4, decode_bc5)
 
 
 def decode_image(compressed, force_four: bool = False):
-    """Decode a CompressedImage -> (S, H, W, C) int32 tensor in 0..255, on
-    the device the blocks live on."""
+    """Decode a CompressedImage -> (S, H, W, C) tensor on the device the
+    blocks live on: int32 in 0..255 for the LDR formats, float32 (from the
+    half bits) for BC6H."""
     from ..formats import BlockFormat
     from ..pipeline.blocks import blocks_to_image, grid_to_packed
 
@@ -25,7 +27,7 @@ def decode_image(compressed, force_four: bool = False):
     elif fmt in (BlockFormat.BC7_UNORM, BlockFormat.BC7_SRGB):
         px = decode_bc7(words)
     elif fmt in (BlockFormat.BC6H_UFLOAT, BlockFormat.BC6H_SFLOAT):
-        raise NotImplementedError("not yet ported: see ROADMAP.md")
+        px = decode_bc6h(words, signed=fmt == BlockFormat.BC6H_SFLOAT)
     else:
         raise ValueError(f"cannot decode {fmt}")
     return blocks_to_image(px, compressed.slices, compressed.height,

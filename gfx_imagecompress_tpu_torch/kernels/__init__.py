@@ -5,10 +5,10 @@ Each wrapper adds one to its kernel's count where it launches the kernel and
 nowhere else; ``launch_counts`` reads the counts and ``reset_launch_counts``
 zeroes them, so a run can show that it went through the kernels.
 """
-from . import bc1, bc4, bc7_est, bc7_fast, bc7_full
+from . import bc1, bc4, bc6h, bc7_est, bc7_fast, bc7_full
 
 _TABLES = (bc1.LAUNCHES, bc4.LAUNCHES, bc7_est.LAUNCHES, bc7_fast.LAUNCHES,
-           bc7_full.LAUNCHES)
+           bc7_full.LAUNCHES, bc6h.LAUNCHES)
 
 
 def launch_counts() -> dict:

@@ -37,7 +37,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 HEADERS = ("bcx_common.cuh", "bc1_search.cuh", "bc4_search.cuh",
            "bc7_common.cuh", "bc7_est.cuh", "bc7_fast_search.cuh",
-           "bc7_full_search.cuh")
+           "bc7_full_search.cuh", "bc6h_layouts.cuh", "bc6h_search.cuh")
 _BC7_FULL = ("bcx_common.cuh", "bc7_common.cuh", "bc7_fast_search.cuh",
              "bc7_full_search.cuh")
 # library -> (source, headers it includes)
@@ -53,6 +53,8 @@ SOURCES = {
     "bc7_full_m02": ("bc7_full_m02_kernel.cu", _BC7_FULL),
     "bc7_full_m1367": ("bc7_full_m1367_kernel.cu", _BC7_FULL),
     "bc7_full_m45": ("bc7_full_m45_kernel.cu", _BC7_FULL),
+    "bc6h": ("bc6h_kernel.cu", ("bcx_common.cuh", "bc7_common.cuh",
+                                "bc6h_layouts.cuh", "bc6h_search.cuh")),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -72,6 +74,7 @@ FUNCTIONS = {
     "bc7_fast_encode": ("bc7_fast", (_P, _L, _P, _I, _I, _I, _P, _P)),
     **{fn: (fn, (_P, _L, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P))
        for fn in ("bc7_full_m02", "bc7_full_m1367", "bc7_full_m45")},
+    "bc6h_encode": ("bc6h", (_P, _L, _I, _I, _I, _I, _I, _I, _P, _P)),
 }
 
 _lock = threading.Lock()

@@ -3,8 +3,7 @@
 Frozen dataclasses, field for field those of the JAX package's
 ``options.py`` (this is the port's own copy). The search budgets they resolve
 to are ordinary arguments of the encoders and launch arguments of the CUDA
-kernels. The BC6H options are carried although that codec is not ported
-yet, so that ``convert.options_from_reference`` covers all five.
+kernels.
 
 Mirrors the reference option structs:
   - Image_CompressBC1Options            (imagecompress.h:35-38, defaults bc1:21-27)

@@ -230,23 +230,6 @@ def test_unimplemented_codecs_return_none(name):
     assert tgic.compress(tgic.CompressType[name], img) is None
 
 
-@pytest.mark.parametrize("call", [
-    lambda i: tgic.compress(tgic.CompressType.DXBC6H, i),
-    lambda i: tgic.compress_amd_bc6h(i),
-], ids=["bc6h", "amd_bc6h"])
-def test_codecs_not_ported_yet_raise(call):
-    img = tgic.Image.from_array(checker_rgb(8, 8), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(img)
-
-
-def test_decode_of_unported_formats_raises():
-    ci = tgic.CompressedImage(torch.zeros((1, 1, 1, 4), dtype=torch.int32),
-                              tgic.BlockFormat.BC6H_UFLOAT, 4, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdecode(ci)
-
-
 # ------------------------------------------------ the fast BC7 slice ---
 # compress(DXBC7, fast=True) runs the default budget (64 partitions, top-4,
 # uber 4), which the JAX package cannot compile in interpret mode on a CPU in
@@ -487,6 +470,158 @@ def test_compress_chunked_takes_the_full_bc7_path():
     out = tgic.compress_chunked(tgic.CompressType.DXBC7, img,
                                 rows_per_chunk=4)
     assert out.format == full.format and torch.equal(out.blocks, full.blocks)
+
+
+# ------------------------------------------------ the BC6H slice ---
+# compress(DXBC6H) runs the top tier (quality 1.0), which the JAX package cannot
+# compile in interpret mode on a CPU in the time a test has; the search is
+# compared at quality 0.3 in test_torch_bc6h.py. Here the containers, both
+# decoders and the option rule are held to the JAX package's.
+
+BC6H_SIZES = {"16x16": (16, 16), "13x9": (13, 9)}
+BC6H_ENTRIES = {
+    "compress": lambda img: tgic.compress(tgic.CompressType.DXBC6H, img),
+    "amd_bc6h": lambda img: tgic.compress_amd_bc6h(img),
+}
+
+
+@lru_cache(maxsize=None)
+def _bc6h(entry, size, signed):
+    from test_bc6h import hdr_image
+    h, w = BC6H_SIZES[size]
+    arr = hdr_image(h, w, seed=h * 10 + w, signed=signed)
+    img = tgic.Image.from_array(arr, signed=signed, hdr=True, device="cpu")
+    return arr, BC6H_ENTRIES[entry](img)
+
+
+@pytest.mark.parametrize("signed", [False, True], ids=["ufloat", "sfloat"])
+@pytest.mark.parametrize("entry", list(BC6H_ENTRIES))
+def test_bc6h_container(entry, signed):
+    arr, out = _bc6h(entry, "13x9", signed)
+    by, bx = 4, 3
+    assert out.format == (tgic.BlockFormat.BC6H_SFLOAT if signed
+                          else tgic.BlockFormat.BC6H_UFLOAT)
+    assert (out.width, out.height, out.slices) == (9, 13, 1)
+    assert tuple(out.blocks.shape) == (1, by, bx, 4)
+    assert out.blocks.dtype == torch.int32
+    assert len(out.tobytes()) == by * bx * 16
+    dec = tdecode(out)
+    assert dec.dtype == torch.float32 and tuple(dec.shape) == (1, 13, 9, 3)
+    assert torch.isfinite(dec).all()
+
+
+@pytest.mark.parametrize("signed", [False, True], ids=["ufloat", "sfloat"])
+def test_bc6h_entries_agree(signed):
+    _, a = _bc6h("compress", "16x16", signed)
+    _, b = _bc6h("amd_bc6h", "16x16", signed)
+    assert a.format == b.format and torch.equal(a.blocks, b.blocks)
+
+
+@pytest.mark.parametrize("signed", [False, True], ids=["ufloat", "sfloat"])
+def test_bc6h_decodes_alike_under_both_decoders(signed):
+    arr, out = _bc6h("compress", "16x16", signed)
+    back = jgic.CompressedImage(convert.compressed_to_numpy(out),
+                                jgic.BlockFormat[out.format.name], out.width,
+                                out.height, out.slices)
+    dec_j = np.asarray(jdecode(back))
+    dec_t = tdecode(out).numpy()
+    assert dec_j.dtype == dec_t.dtype == np.float32
+    np.testing.assert_array_equal(dec_t, dec_j)
+    # an HDR encode keeps the image: relative error well under 5% per pixel
+    rel = np.abs(dec_t[0] - arr) / np.maximum(np.abs(arr), 1e-3)
+    assert np.median(rel) < 0.05
+
+
+BC6H_OPTIONS = {
+    "bc6h_options": (jgic.AMDBackendOptions(mode_mask=0x5A),
+                     jgic.BC6HOptions(False, 0.4, 0x3C0F)),
+    "amd_only": (jgic.AMDBackendOptions(mode_mask=0x7E), None),
+    "neither": (None, None),
+}
+
+
+@pytest.mark.parametrize("case", list(BC6H_OPTIONS))
+def test_bc6h_options_reach_the_encoder_as_in_jax(case, monkeypatch):
+    """The port's compress_amd_bc6h hands encode_bc6h_blocks the arguments
+    the JAX entry hands encode_bc6h_blocks_pallas: BC6HOptions' quality and
+    16-bit mask, else the AMD options' mask at quality 1.0, else all modes."""
+    import jax.numpy as jnp
+    from gfx_imagecompress_tpu.kernels import bc6h_pallas
+    seen = {"jax": [], "port": []}
+
+    def spy(side, zeros):
+        def fn(blocks, **kw):
+            seen[side].append((tuple(blocks.shape), kw))
+            return zeros(blocks.shape[0])
+        return fn
+
+    monkeypatch.setattr(bc6h_pallas, "encode_bc6h_blocks_pallas",
+                        spy("jax", lambda n: (jnp.zeros((n, 4), jnp.uint32),
+                                              jnp.zeros((n,)))))
+    monkeypatch.setattr(tapi, "encode_bc6h_blocks",
+                        spy("port", lambda n: (
+                            torch.zeros((n, 4), dtype=torch.int32),
+                            torch.zeros(n))))
+    amd, opt = BC6H_OPTIONS[case]
+    arr = np.abs(checker_rgb(8, 12)) * 7.0
+    for signed in (False, True):
+        jgic.compress_amd_bc6h(jgic.Image.from_array(arr, signed=signed,
+                                                     hdr=True), amd, opt)
+        tgic.compress_amd_bc6h(
+            tgic.Image.from_array(arr, signed=signed, hdr=True,
+                                  device="cpu"),
+            None if amd is None else convert.options_from_reference(amd),
+            None if opt is None else convert.options_from_reference(opt))
+    if amd is None and opt is None:
+        jgic.compress(jgic.CompressType.DXBC6H,
+                      jgic.Image.from_array(arr, hdr=True))
+        tgic.compress(tgic.CompressType.DXBC6H,
+                      tgic.Image.from_array(arr, hdr=True, device="cpu"))
+    assert seen["port"] == seen["jax"] and len(seen["port"]) >= 2
+
+
+def test_pick_then_compress_takes_bc6h_for_hdr():
+    from test_bc6h import hdr_image
+    img = tgic.Image.from_array(hdr_image(8, 8, seed=2), hdr=True,
+                                device="cpu")
+    ctype = tgic.pick_compression_type(tgic.PickFlags.ALLOW_DXBC6AND7, img)
+    assert ctype == tgic.CompressType.DXBC6H
+    out = tgic.compress(ctype, img)
+    assert out.format == tgic.BlockFormat.BC6H_UFLOAT
+    assert tuple(tdecode(out).shape) == (1, 8, 8, 3)
+
+
+def test_compress_chunked_takes_the_bc6h_path():
+    from test_bc6h import hdr_image
+    img = tgic.Image.from_array(hdr_image(8, 12, seed=4, signed=True),
+                                signed=True, hdr=True, device="cpu")
+    full = tgic.compress(tgic.CompressType.DXBC6H, img)
+    seen = []
+    out = tgic.compress_chunked(tgic.CompressType.DXBC6H, img,
+                                progress=lambda p: seen.append(p) or False,
+                                rows_per_chunk=4)
+    assert seen == [50.0, 100.0]
+    assert out.format == full.format == tgic.BlockFormat.BC6H_SFLOAT
+    assert torch.equal(out.blocks, full.blocks)
+
+
+@pytest.mark.parametrize("signed", [False, True], ids=["uf16", "sf16"])
+def test_bc6h_dds_round_trip(signed, tmp_path):
+    from gfx_imagecompress_tpu_torch.io import dds
+    from gfx_imagecompress_tpu.io import dds as jdds
+    _, out = _bc6h("compress", "13x9", signed)
+    path = tmp_path / "t.dds"
+    dds.write_compressed(str(path), out)
+    raw = path.read_bytes()
+    # DXGI_FORMAT_BC6H_UF16 = 95, BC6H_SF16 = 96 in the DX10 header
+    assert int.from_bytes(raw[128:132], "little") == (96 if signed else 95)
+    back = dds.read_compressed(str(path), device="cpu")
+    assert back.format == out.format
+    assert (back.width, back.height, back.slices) == (9, 13, 1)
+    assert torch.equal(back.blocks, out.blocks)
+    jback = jdds.read_compressed(str(path))
+    assert jback.format.name == out.format.name
+    assert jback.tobytes() == out.tobytes()
 
 
 def test_same_public_names_and_enums():

@@ -14,8 +14,8 @@ import pytest
 import torch
 
 from gfx_imagecompress_tpu_torch import kernels
-from gfx_imagecompress_tpu_torch.kernels import (bc1, bc4, bc7_est, bc7_fast,
-                                                 bc7_full)
+from gfx_imagecompress_tpu_torch.kernels import (bc1, bc4, bc6h, bc7_est,
+                                                 bc7_fast, bc7_full)
 
 pytestmark = pytest.mark.cuda
 
@@ -152,3 +152,64 @@ def test_full_bc7_kernel_equals_plain_version(name):
     wp, ep = bc7_full.encode_bc7_blocks_plain(x, **kw)
     assert (wk == wp).all(dim=1).double().mean().item() >= 0.99
     torch.testing.assert_close(ek, ep, rtol=1e-5, atol=1e-3)
+
+
+def _hdr_blocks(n=1024, seed=5, signed=False):
+    """(n,16,3) float32 HDR blocks: smooth exponent fields with
+    multiplicative noise, solid blocks, values at and beyond the half range,
+    negatives and half subnormals."""
+    rng = np.random.default_rng(seed)
+    base = np.exp(rng.uniform(-6, 9, (n, 1, 3)))
+    b = base * (1.0 + rng.normal(0, 0.05, (n, 16, 3)))
+    b[:32] = base[:32]                                   # solid
+    b[32:64] = rng.choice([65504.0, 70000.0, np.inf, 100.0], (32, 16, 3))
+    b[64:96] = rng.normal(0, 3.0, (32, 16, 3))
+    b[96:128] = rng.random((32, 16, 3)) * 6e-5
+    if signed:
+        b[128::2, :, 1] *= -1.0
+    return b.astype(np.float32)
+
+
+BC6H_CASES = {
+    **{f"q{q}_{s}": dict(quality=q, signed=s == "signed")
+       for q in (0.3, 0.7, 0.8, 1.0) for s in ("unsigned", "signed")},
+    **{f"q1_mask{m:04x}": dict(mode_mask=m)
+       for m in (0x3C00, 0x1FF, 0x200, 0x2000)},
+}
+
+
+@pytest.mark.parametrize("name", list(BC6H_CASES))
+def test_bc6h_kernel_equals_plain_version(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kw = BC6H_CASES[name]
+    x = torch.from_numpy(_hdr_blocks(signed=kw.get("signed", False))).cuda()
+    before = kernels.launch_counts()["bc6h"]
+    wk, ek = bc6h.encode_bc6h_blocks(x, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["bc6h"] == before + 1
+    wp, ep = bc6h.encode_bc6h_blocks_plain(x, **kw)
+    assert torch.equal(wk, wp)
+    assert torch.equal(ek, ep)
+
+
+def test_bc6h_wrapper_raises_on_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.from_numpy(_hdr_blocks(256)).cuda()
+    h = bc6h.f32_to_half_int(x, False)
+    with pytest.raises(ValueError):
+        bc6h.bc6h_search(h.long(), signed=False, topk=2, iters=1, shake=0,
+                         mode_mask=0xFFFF)
+    with pytest.raises(ValueError):
+        bc6h.encode_bc6h_blocks(x, mode_mask=0xC000)
+    with pytest.raises(ValueError):
+        bc6h.bc6h_search(h, signed=False, topk=33, iters=1, shake=0,
+                         mode_mask=0xFFFF)
+    # the launcher refuses a fallback mode the mask does not enable
+    from gfx_imagecompress_tpu_torch.kernels import _build
+    words = torch.empty((256, 4), dtype=torch.int32, device="cuda")
+    err = torch.empty((256,), dtype=torch.float32, device="cuda")
+    with pytest.raises(RuntimeError):
+        _build.launch("bc6h_encode", h, 256, 0, 2, 1, 0, 0x1FF, 12, words,
+                      err)

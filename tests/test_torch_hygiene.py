@@ -30,7 +30,9 @@ def test_port_has_the_expected_modules():
             "bitpack_dyn.py", "decode/bc7.py", "tables/__init__.py",
             "tables/bc7_tables.py", "kernels/bc7_est.py",
             "kernels/bc7_fast.py", "kernels/bc7_full.py",
-            "pipeline/chunking.py"} <= names
+            "pipeline/chunking.py", "tables/bc6h_tables.py",
+            "decode/bc6h.py", "kernels/bc6h.py",
+            "csrc/gen_bc6h_layouts.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -68,6 +70,12 @@ def test_runs_with_jax_and_the_jax_package_blocked():
         "out = gic.compress_richgel999_bc7(\n"
         "    img, gic.RichGel999Options(fast=True))\n"
         "assert decode_image(out).shape == (1, 8, 12, 4)\n"
+        "hdr = gic.Image.from_array(arr * 9.0, hdr=True, device='cpu')\n"
+        "out = gic.compress(gic.CompressType.DXBC6H, hdr)\n"
+        "assert decode_image(out).shape == (1, 8, 12, 3)\n"
+        "import runpy\n"
+        "runpy.run_path('gfx_imagecompress_tpu_torch/csrc/"
+        "gen_bc6h_layouts.py', run_name='gen')\n"
         "assert sum(kernels.launch_counts().values()) == 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       if sys.modules[m] is not None]\n"
@@ -109,9 +117,12 @@ def test_cpu_wrappers_never_touch_the_build_module():
         assert tgic.compress(tgic.CompressType[ct], img) is not None
     assert tgic.compress(tgic.CompressType.DXBC7, img, fast=True) is not None
     assert tgic.compress(tgic.CompressType.DXBC7, img) is not None
+    hdr = tgic.Image.from_array(img.data * 9.0, signed=True, hdr=True,
+                                device="cpu")
+    assert tgic.compress(tgic.CompressType.DXBC6H, hdr) is not None
     assert kernels.launch_counts() == {
         "bc1": 0, "bc2": 0, "bc3": 0, "bc4": 0, "bc5": 0, "bc7_est": 0,
-        "bc7_fast": 0, "bc7_full": 0}
+        "bc7_fast": 0, "bc7_full": 0, "bc6h": 0}
 
 
 def test_build_module_names_sources_that_exist():
