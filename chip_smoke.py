@@ -1088,6 +1088,7 @@ def main() -> int:
     card_equals_cpu("bc7_full", small)
     card_equals_cpu("bc7_full", photo_rgba(64, 64, seed=108))
     full_counts = launched(("bc7_est", "bc7_full"))
+    full_est_by_config = dict(bc7_est.LAUNCHES_BY_CONFIG)
     counts["bc7_full"] = full_counts["bc7_full"]
     counts["bc7_est_full_path"] = full_counts["bc7_est"]
     # Fourth path: BC6H through compress(DXBC6H) (quality 1.0, all 14
@@ -1260,12 +1261,17 @@ def main() -> int:
 
     def full_kernel_row(x, reps):
         """The full search's eight launches of one compress() chunk, on the
-        main path's shortlists (computed once, not timed): all together,
-        each alone, and once more against the plain version."""
+        main path's shortlists. ``ms`` is the eight launches as the path runs
+        them, right after the chunk's three shortlist launches (not timed);
+        ``ms_alone`` the eight back to back on shortlists computed once; then
+        each mode alone, and once more against the plain version. The three
+        shortlists get rows of their own (``full_est_rows``)."""
         plan = bc7_full._plan(1.0, 0xFF, 1.0, None, None, None, None)
         bar = bc7_full._combined_alpha_bar(x, True, True)
-        pre = {tuple(sorted(cfg.items())): bc7_est.estimate_topk(x, **cfg)
-               for cfg in plan.shortlists.values() if isinstance(cfg, dict)}
+        cfgs = {tuple(sorted(cfg.items())): cfg
+                for cfg in plan.shortlists.values() if isinstance(cfg, dict)}
+        pre = {key: bc7_est.estimate_topk(x, **cfg)
+               for key, cfg in cfgs.items()}
 
         def given(blocks, **cfg):
             return pre[tuple(sorted(cfg.items()))]
@@ -1273,6 +1279,12 @@ def main() -> int:
         def searches(fn):
             return lambda x: bc7_full._encode(x, plan, bar, given, fn)
 
+        def shortlists():
+            for key, cfg in cfgs.items():
+                pre[key] = bc7_est.estimate_topk(x, **cfg)
+
+        path_ms = launch_ms(shortlists, lambda: searches(
+            bc7_full.bc7_mode_search)(x), reps)
         per_mode = {}
         for m in plan.modes:
             cfg = plan.shortlists.get(m)
@@ -1292,10 +1304,49 @@ def main() -> int:
         k = plan.shortlists[1]["k"]
         bytes_pb = int(round(6 * 256 + 2 + unbarred * 2 * 256
                              + 4 * k * (3 + unbarred) + 8 * 20 + 7 * 4))
-        return kernel_row("bc7_full", r, x, ops_bc7_full(unbarred),
-                          bytes_pb=bytes_pb, per_mode_ms=per_mode,
+        regs = [res for res in resources if res["lib"].startswith("bc7_full")]
+        return kernel_row("bc7_full", dict(r, kernel_ms=path_ms), x,
+                          ops_bc7_full(unbarred), bytes_pb=bytes_pb,
+                          ms_alone=r["kernel_ms"], per_mode_ms=per_mode,
                           blocks_per_mode=r["blocks_per_mode"],
-                          unbarred_frac=unbarred)
+                          unbarred_frac=unbarred,
+                          lanes_per_block={m: bc7_full.LAUNCH_SHAPES[m][0]
+                                           for m in plan.modes},
+                          threads_per_cta={m: bc7_full.LAUNCH_SHAPES[m][1]
+                                           for m in plan.modes},
+                          lanes_per_block_without_refinement={
+                              m: bc7_full.NARROW_SHAPES[m][0]
+                              for m in plan.modes},
+                          threads_per_cta_without_refinement={
+                              m: bc7_full.NARROW_SHAPES[m][1]
+                              for m in plan.modes},
+                          resources=regs)
+
+    def full_est_rows(x, reps):
+        """The three shortlist launches of a full-BC7 chunk at the main
+        path's shape, each against its plain version: modes 1/3, mode 2,
+        mode 7. ``launches`` is what the wrapper counted for that
+        configuration while the full path ran."""
+        plan = bc7_full._plan(1.0, 0xFF, 1.0, None, None, None, None)
+        cfgs = {tuple(sorted(cfg.items())): cfg
+                for cfg in plan.shortlists.values() if isinstance(cfg, dict)}
+        out = []
+        for cfg in cfgs.values():
+            label = (f"full_{cfg['chans']}ch_{cfg['subsets']}sub_"
+                     f"l{cfg['levels']}_k{cfg['k']}"
+                     + ("_pca" if cfg.get("estimator") == "pca" else ""))
+            r = compare_est(label, bc7_est, x, cfg, reps)
+            row = kernel_row("bc7_est", r, x, ops_bc7_est(
+                chans=cfg["chans"], subsets=cfg["subsets"],
+                nparts=len(cfg["plist"]), k=cfg["k"],
+                pca=cfg.get("estimator") == "pca"),
+                bytes_pb=256 + 4 * cfg["k"], config=label)
+            row["launches"] = full_est_by_config.get(
+                bc7_est.config_key(**cfg), 0)
+            check(row["launches"] > 0,
+                  f"main path never launched the {label} shortlist")
+            out.append(row)
+        return out
 
     def bc6h_kernel_row(reps):
         """K6 on the half-ints of the main path's 1K images, unsigned and
@@ -1379,6 +1430,7 @@ def main() -> int:
                                                       uber=4)
         if name == "bc7_full":
             final.append(full_kernel_row(x, 1 if q else 3))
+            final.extend(full_est_rows(x, 1 if q else 20))
             continue
         r = compare(name, "main_shape", wrapper, plain, x, {}, decode,
                     reps=reps, exact_cols=exact.get(name, ()))

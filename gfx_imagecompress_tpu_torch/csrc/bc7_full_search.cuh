@@ -1,23 +1,64 @@
 // Full BC7 search (K5): one mode of the AMD-path search per block, the search
-// of kernels/bc7_full.py (and of the JAX package's bc7_full_pallas.py
-// _mode_kernel).
+// of kernels/bc7_full.py. Replaces the Pallas kernel of the JAX package,
+// gfx_imagecompress_tpu/kernels/bc7_full_pallas.py:_mode_kernel (body at
+// :1015, launched at :1178).
 //
 // What bounds it: operations. A block is 256 bytes in, 4*K bytes of ids in and
 // 20 bytes out against 10^5-10^6 float operations per mode at the top tier:
 // per shortlisted partition and subset a PCA fit and a p-bit race with exact
 // palette assigns, then on the winner (and the runner-up, "keep-2") up to 38
-// uber variants, each refit and requantised, and 3 rounds of a 24-step shake
-// cube per channel.
-// What the design does about it: one thread per block, one template
-// instantiation per mode (its own constants, registers and launch), the 64
-// pixel floats in registers for the whole search. The 16 indices of a block
-// travel in one 64-bit word (4 bits each), so the anchor read, the index
-// complement and the selector variants need no array; endpoint codes travel
-// as 8-bit fields of one 32-bit word per endpoint. Partition, subset, variant,
-// step and rotation loops stay rolled with one call site per heavy function;
-// pixel and channel loops are unrolled, and a masked pass visits only its
-// subset's pixels. The dual modes rotate the block in place (a swap of two
-// channel rows) instead of holding a rotated copy.
+// uber variants per subset, each refit and requantised, and 3 rounds of a
+// 25-step shake cube per channel with a p-bit re-race.
+//
+// What the design does about it: a group of lanes encodes one block (Shape:
+// 16 in mode 0, 8 in the other single-index modes, 4 in the dual modes; one
+// in the single-index modes for a budget without refinement); a CTA holds
+// several groups. The group loads its block once (float4 loads side by side)
+// into shared memory, scaled to 0..255, and every lane reads pixels from
+// there; nothing keeps the 64 pixel floats in registers (45-72 registers in
+// the fourteen instantiations, no spill stores, as ptxas -v reports them).
+// The search is a sequence of phases, and each phase deals independent
+// candidates to the lanes:
+//   a. one item per partition (dual modes: per rotation and selection), its
+//      subsets fitted and quantised in order;
+//   b. best and runner-up over those, in their order;
+//   c. uber, one item per (group, variant); a group is a chain's subset
+//      (dual modes: a chain's colour or scalar channel);
+//   d. per shake round, one item per (group, channel, K steps), one scan per
+//      (group, channel), one item per (group, p-bit combination) for the
+//      re-race on the shaken codes, one scan per group;
+//   e. the chain pick, the pack and the merge.
+// A lane computes its candidate whole with the plain version's arithmetic and
+// writes (error, state) to a slot in shared memory; after the group's barrier
+// the winner is picked by a scan of the slots in the sequential order, with the
+// sequential loops' compares (scan_min, keep2_step). No sum is reordered and no
+// error goes through a shuffle tree, so the words stay those of the plain
+// version. Phases with an unbounded number of candidates (partitions, uber
+// variants) run in chunks of slots, the scan carrying its incumbent from one
+// chunk to the next.
+// Why the groups are independent: an uber or shake step of a chain's subset s
+// reads and writes only subset s's codes and index fields, and within a shake
+// round channel c's steps read and write only channel c's codes at the
+// round's fixed indices and p-bits; only the re-race after them changes the
+// p-bits and the indices.
+// Masked passes visit the set bits of the subset's mask in ascending pixel
+// order, so a 3-subset pass costs its subset's pixels, not 16 predicated
+// slots; a shake item's K steps share one pass over the pixels and the
+// round's weights (kept per pixel, written by the re-race's exact assign).
+// Items are dealt so that neighbouring lanes work on the same group (same
+// trip counts) and, in the dual modes, the same code path.
+//
+// The route is CUDA C++: integer bit-fields, data-dependent loops and
+// per-lane branching. Tensor cores (wgmma) and TMA are not used: the arithmetic
+// is scalar float32 with a fixed order of summation, which no matrix unit
+// keeps, and a block reads only 256 bytes.
+//
+// A phase is written as a function of the lane over the group's shared
+// struct, handed to `run`: the kernel runs it on each lane and then the
+// group's barrier (__syncwarp on the group's lanes); the host build of the
+// tests runs it as a loop over the lanes. Control flow between phases depends
+// only on launch arguments and on shared values read after a barrier, so it is
+// the same on every lane.
 //
 // Bit-agreement with the plain version: candidates in its order, strict <
 // (first wins), sums over pixels left to right in pixel order, Python-double
@@ -27,6 +68,38 @@
 #include "bc7_fast_search.cuh"
 
 namespace bc7 {
+
+constexpr int MAX_STEPS = 25;             // shake steps at srange 2
+
+// Launch shape of mode M: the lanes of a block match the candidates of its
+// phases. Mode 0 fits 16 partitions: 16 lanes. The other single-index modes
+// fit 8 partitions (or one): 8 lanes. The dual modes have 4 or 8 (rotation,
+// selection) candidates on two index widths: 4 lanes, so that the lanes of a
+// step share a code path. Measured on the H100 against 8, 16 and 32 lanes
+// (single-index modes) and 2, 4 and 8 (dual modes): PERF.md.
+// W = 1 is the narrow shape of the single-index modes, for budgets without
+// refinement (no uber, no shake: quality 0.25 and below), where the only
+// candidates are the shortlisted partitions (one at quality 0.25): one lane
+// per block, 64 blocks per CTA, on a shared struct without the refinement's
+// areas. The dual modes keep their shape (their candidates fill the lanes).
+template <int M, int W = 0>
+struct Shape {
+  enum {
+    DUAL = M == 4 || M == 5,
+    LANES = W && !DUAL ? 1 : (M == 0 ? 16 : (DUAL ? 4 : 8)),  // lanes per BC7 block
+    THREADS = LANES == 16 ? 128 : 64,      // threads per CTA
+    BLOCKS = THREADS / LANES,              // BC7 blocks per CTA
+    MIN_CTAS = 512 / THREADS,              // CTAs per SM: at most 128 registers
+    SLOTS = DUAL ? 4 * LANES : 3 * LANES,  // candidate slots of a chunked phase
+  };
+};
+
+// The shape of mode M's launch for a budget: the narrow one for a
+// single-index mode without refinement.
+template <int M>
+inline bool narrow_shape(int shake, int uber) {
+  return !Shape<M>::DUAL && shake == 0 && uber == 0;
+}
 
 // ---- per-mode constants: subsets, channels searched (the opaque modes 0-3
 // search RGB and pay for alpha afterwards), colour / alpha endpoint bits,
@@ -93,6 +166,229 @@ __device__ __forceinline__ int combo_p1(int cb) {
   return PB == 2 ? cb & 1 : cb;
 }
 
+// ---- the in-order scans that pick a phase's winners
+
+// A strict-< scan of candidates 0..n-1 against an incumbent error `inc`: a
+// candidate with ok(t) false is skipped, the incumbent and then the earlier
+// candidate keep ties. Returns the winning candidate, or -1 where the
+// incumbent stays; `inc` ends as the winner's error.
+template <class Err, class Ok>
+__device__ __forceinline__ int scan_min(float& inc, int n, Err err, Ok ok) {
+  int w = -1;
+  for (int t = 0; t < n; ++t) {
+    const float e = err(t);
+    if (ok(t) && e < inc) {
+      inc = e;
+      w = t;
+    }
+  }
+  return w;
+}
+
+template <class Err>
+__device__ __forceinline__ int scan_min(float& inc, int n, Err err) {
+  return scan_min(inc, n, err, [](int) { return true; });
+}
+
+// One step of the keep-2 scan: candidate error `ce` against the best `be`
+// and the runner-up `b2e` (`have2`: there is one). Bit 0: the candidate
+// becomes the best; bit 1: the runner-up becomes the one of the two that is
+// not the best now (the demoted best if bit 0, else the candidate). A demoted
+// best replaces the runner-up only on a strict <, so with errors 5, 5, 3 the
+// runner-up is candidate 1, not candidate 0.
+__device__ __forceinline__ int keep2_step(float ce, float be, float b2e, bool have2) {
+  const bool take = ce < be;
+  const float le = take ? be : ce;
+  return (take ? 1 : 0) | ((!have2 || le < b2e) ? 2 : 0);
+}
+
+// ---- masked passes over the subset's pixels, ascending. These are K5's
+// copies of the fast search's fit_line, lsq_refit and assign_exact (RGB
+// metric): the same arithmetic in the same order, with pixels read from
+// shared memory by their index instead of unrolled over 16 predicated slots.
+// FULL: the mask is all 16 pixels, known at compile time (the one-subset
+// modes); the pass is then a counted loop, kept rolled: unrolled 2, 4, 8 or
+// 16 times, the dual modes' kernels run 1.2-2.2 times slower on the H100
+// (code size; PERF.md).
+template <bool FULL, class F>
+__device__ __forceinline__ void for_pixels(uint32_t mask, F&& f) {
+  if constexpr (FULL) {
+#pragma unroll 1
+    for (int p = 0; p < 16; ++p) f(p);
+  } else {
+    for (uint32_t m = mask; m; m &= m - 1) f(__ffs(m) - 1);
+  }
+}
+
+// least-squares endpoints for fixed indices; e0/e1 come in as the fallback
+// and stay where the system is singular
+template <int NC, int IB, bool FULL, class X>
+__device__ __forceinline__ void refit_sub(const X& xs, u64 idx, uint32_t mask,
+                                          float (&e0)[NC], float (&e1)[NC]) {
+  float q00 = 0.0f, q01 = 0.0f, q11 = 0.0f;
+  float b0[NC], b1[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) b0[c] = b1[c] = 0.0f;
+  for_pixels<FULL>(mask, [&](int p) {
+    const float a = level<IB>(get4(idx, p));
+    const float one_a = 1.0f - a;
+    q00 = q00 + one_a * (1.0f - a);
+    q01 = q01 + one_a * a;
+    q11 = q11 + a * a;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      b0[c] = b0[c] + one_a * xs[c][p];
+      b1[c] = b1[c] + a * xs[c][p];
+    }
+  });
+  const float det = q00 * q11 - q01 * q01;
+  const bool ok = fabsf(det) > 1e-6f;
+  const float inv = 1.0f / (ok ? det : 1.0f);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const float n0 = (q11 * b0[c] - q01 * b1[c]) * inv;
+    const float n1 = (q00 * b1[c] - q01 * b0[c]) * inv;
+    e0[c] = ok ? n0 : e0[c];
+    e1[c] = ok ? n1 : e1[c];
+  }
+}
+
+// PCA + least-squares line fit over the pixels of `mask`, `iters` rounds
+template <int NC, int IB, bool FULL, class X>
+__device__ __forceinline__ void fit_sub(const X& xs, uint32_t mask, int iters,
+                                        float (&e0)[NC], float (&e1)[NC]) {
+  const float cnt = fmaxf((float)__popc(mask), 1.0f);
+  float mean[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) mean[c] = 0.0f;
+  for_pixels<FULL>(mask, [&](int p) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) mean[c] = mean[c] + xs[c][p];
+  });
+#pragma unroll
+  for (int c = 0; c < NC; ++c) mean[c] = mean[c] / cnt;
+  float cov[NC][NC];
+#pragma unroll
+  for (int a = 0; a < NC; ++a)
+#pragma unroll
+    for (int b = a; b < NC; ++b) cov[a][b] = 0.0f;
+  for_pixels<FULL>(mask, [&](int p) {
+    float d[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) d[c] = xs[c][p] - mean[c];
+#pragma unroll
+    for (int a = 0; a < NC; ++a)
+#pragma unroll
+      for (int b = a; b < NC; ++b) cov[a][b] = cov[a][b] + d[a] * d[b];
+  });
+#pragma unroll
+  for (int a = 0; a < NC; ++a)
+#pragma unroll
+    for (int b = 0; b < a; ++b) cov[a][b] = cov[b][a];
+  float axis[NC];
+  principal_axis<NC>(cov, NC == 4 ? 0.5f : 0.57735026f, axis);
+  float tmin = 1e30f, tmax = -1e30f;
+  for_pixels<FULL>(mask, [&](int p) {
+    float t = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) t = t + (xs[c][p] - mean[c]) * axis[c];
+    tmin = fminf(tmin, t);
+    tmax = fmaxf(tmax, t);
+  });
+  tmin = tmin > tmax ? 0.0f : tmin;
+  tmax = tmax < tmin ? 0.0f : tmax;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    e0[c] = mean[c] + tmin * axis[c];
+    e1[c] = mean[c] + tmax * axis[c];
+  }
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+    Proj<NC> pr;
+    make_proj<NC>(e0, e1, false, false, pr);
+    u64 idx = 0;
+    for_pixels<FULL>(mask, [&](int p) {
+      float px[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) px[c] = xs[c][p];
+      idx |= (u64)proj_index<NC, IB>(pr, px) << (4 * p);
+    });
+    refit_sub<NC, IB, FULL>(xs, idx, mask, e0, e1);
+  }
+}
+
+// Exact palette assign of the pixels of `mask`, RGB(A) metric, channels
+// C0..C0+NC-1: the projection index, the distance to the entry it selects;
+// index fields outside the mask stay 0. w (unless null): the weight of the
+// entry each pixel of the mask selects, at the pixel's position.
+template <int NC, int C0, int IB, bool FULL, class X>
+__device__ __forceinline__ void assign_sub(const X& xs, const int (&d0)[NC],
+                                           const int (&d1)[NC], uint32_t mask, u64& idx,
+                                           float& err, uint8_t* w = nullptr) {
+  static_assert(C0 == 0 || (NC == 1 && C0 == 3), "a scalar assign reads the alpha row");
+  float p0[NC], p1[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    p0[c] = (float)d0[c];
+    p1[c] = (float)d1[c];
+  }
+  Proj<NC> pr;
+  make_proj<NC>(p0, p1, false, true, pr);
+  u64 acc = 0;
+  float e = 0.0f;
+  for_pixels<FULL>(mask, [&](int p) {
+    float px[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) px[c] = xs[C0 + c][p];
+    const int i = proj_index<NC, IB>(pr, px);
+    const int wk = weight<IB>(i);
+    float d = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float diff = px[c] - (float)lerp64(d0[c], d1[c], wk);
+      d = d + diff * diff;
+    }
+    acc |= (u64)i << (4 * p);
+    e = e + d;
+    if (w) w[p] = (uint8_t)wk;
+  });
+  idx = acc;
+  err = e;
+}
+
+// K5's copy of the fast search's selector_variant, over the pixels of the
+// mask only: v < 3 the +-1 perturbations of the extreme selectors, v >= 3 the
+// selector-scaling extrapolations in (ly, hy) order; false for the identity
+// (0, max_sel), which is not a variant.
+template <bool FULL>
+__device__ __forceinline__ bool sel_variant(u64 base, uint32_t mask, int v, int q, int max_sel,
+                                            int mn, int mx, u64& out) {
+  u64 acc = 0;
+  if (v < 3) {
+    for_pixels<FULL>(mask, [&](int p) {
+      const int r = get4(base, p);
+      const bool up = r == mn && r < max_sel;
+      const bool dn = r == mx && r > 0;
+      const int o = v == 0 ? (up ? r + 1 : r) : (v == 1 ? (dn ? r - 1 : r) : (up ? r + 1 : (dn ? r - 1 : r)));
+      acc |= (u64)o << (4 * p);
+    });
+    out = acc;
+    return true;
+  }
+  const int span = q + 2;
+  const int ly = -q + (v - 3) / span;
+  const int hy = max_sel - 1 + (v - 3) % span;
+  if (ly == 0 && hy == max_sel) return false;
+  const float fms = (float)max_sel, fly = (float)ly, fden = (float)(hy - ly);
+  for_pixels<FULL>(mask, [&](int p) {
+    const float r = (float)get4(base, p);
+    const float s = floorf(fms * (r - fly) / fden + 0.5f);
+    acc |= (u64)(int)fminf(fmaxf(s, 0.0f), fms) << (4 * p);
+  });
+  out = acc;
+  return true;
+}
+
 // ---- endpoints and indices of one subset
 struct Sub {
   float err;
@@ -100,40 +396,12 @@ struct Sub {
   int p0, p1;       // p-bits (0 without)
 };
 
-// Exact palette assign of the pixels of `mask`, RGB(A) metric, channels
-// C0..C0+NC-1: the projection index, the distance to the entry it selects.
-template <int NC, int C0, int IB>
-__device__ __forceinline__ void assign_sub(const float (&xs)[4][16], const int (&d0)[NC],
-                                           const int (&d1)[NC], uint32_t mask, u64& idx,
-                                           float& err) {
-  if constexpr (C0 == 0) {
-    float unused;
-    assign_exact<NC, IB, false>(xs, false, d0, d1, mask, idx, err, unused);
-  } else {
-    static_assert(NC == 1 && C0 == 3, "a scalar assign reads the alpha row");
-    const float e0[1] = {(float)d0[0]}, e1[1] = {(float)d1[0]};
-    Proj<1> pr;
-    make_proj<1>(e0, e1, false, true, pr);
-    idx = 0;
-    err = 0.0f;
-#pragma unroll
-    for (int p = 0; p < 16; ++p)
-      if ((mask >> p) & 1u) {
-        const float px[1] = {xs[3][p]};
-        const int i = proj_index<1, IB>(pr, px);
-        const float diff = xs[3][p] - (float)lerp64(d0[0], d1[0], weight<IB>(i));
-        idx |= (u64)i << (4 * p);
-        err = err + 1.0f * diff * diff;
-      }
-  }
-}
-
 // Quantise one subset's float endpoints against the exact palette. Without
 // p-bits: plain codes, one assign. With p-bits: the combinations raced by the
 // endpoints' rounding error, the winner assigned exactly - and with race 2 the
 // best loser too, the smaller error winning (first on a tie).
-template <int NC, int CB, int PB, int IB>
-__device__ __forceinline__ void quant_subset(const float (&xs)[4][16], uint32_t mask,
+template <int NC, int CB, int PB, int IB, bool FULL, class X>
+__device__ __forceinline__ void quant_subset(const X& xs, uint32_t mask,
                                              const float (&e0)[NC], const float (&e1)[NC],
                                              int race, Sub& out, u64& idx) {
   if constexpr (PB == 0) {
@@ -148,7 +416,7 @@ __device__ __forceinline__ void quant_subset(const float (&xs)[4][16], uint32_t 
       setq(out.q1, c, q);
     }
     out.p0 = out.p1 = 0;
-    assign_sub<NC, 0, IB>(xs, d0, d1, mask, idx, out.err);
+    assign_sub<NC, 0, IB, FULL>(xs, d0, d1, mask, idx, out.err);
   } else {
     float a[NC], b[NC];
 #pragma unroll
@@ -204,7 +472,7 @@ __device__ __forceinline__ void quant_subset(const float (&xs)[4][16], uint32_t 
         setq(c.q1, ch, q);
       }
       u64 ci;
-      assign_sub<NC, 0, IB>(xs, d0, d1, mask, ci, c.err);
+      assign_sub<NC, 0, IB, FULL>(xs, d0, d1, mask, ci, c.err);
       if (r == 0 || c.err < out.err) {
         out = c;
         idx = ci;
@@ -213,123 +481,173 @@ __device__ __forceinline__ void quant_subset(const float (&xs)[4][16], uint32_t 
   }
 }
 
-// Uber selector rounds on one subset: the variants come from the indices at
-// entry, each is refit by least squares (falling back to the entry's decoded
-// endpoints) and requantised; the smallest error wins, the entry on a tie.
-template <int NC, int CB, int PB, int IB>
-__device__ __forceinline__ void uber_subset(const float (&xs)[4][16], uint32_t mask, int uber,
-                                            int race, Sub& st, u64& idx) {
-  int q;
-  const int nvar = variant_slots(uber, q);
-  float d0[NC], d1[NC];
+// ---- shared state of a group
+struct Slot {      // one uber candidate's result
+  Sub s;
+  u64 idx;         // the subset's index fields only
+  int ok;          // 0: a skipped variant
+};
+
+struct Entry {     // a refinement group (a chain's subset, or a channel group)
+  Sub s;           // its state at the entry of the uber phase
+  u64 base;        // its index fields there
+  uint32_t mask;
+  int mn, mx;      // smallest and largest index there
+};
+
+struct Rerace {    // one p-bit combination of a group's re-race
+  float err;
+  u64 idx;
+  uint8_t w[16];   // the weights its indices select, per pixel
+};
+
+// uber item v of a group: selector variant v of the entry's indices, refit
+// by least squares (falling back to the entry's decoded endpoints) and
+// requantised; ok = 0 for the identity variant, which is skipped
+template <int NC, int CB, int PB, int IB, bool FULL>
+__device__ __forceinline__ void uber_item(const float (&xs)[4][16], const Entry& e, int v, int q,
+                                          int race, Slot& out) {
+  u64 src;
+  out.ok = sel_variant<FULL>(e.base, e.mask, v, q, (1 << IB) - 1, e.mn, e.mx, src) ? 1 : 0;
+  if (!out.ok) return;
+  float e0[NC], e1[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    d0[c] = (float)deq_ch<CB, PB>(getq(st.q0, c), st.p0);
-    d1[c] = (float)deq_ch<CB, PB>(getq(st.q1, c), st.p1);
+    e0[c] = (float)deq_ch<CB, PB>(getq(e.s.q0, c), e.s.p0);
+    e1[c] = (float)deq_ch<CB, PB>(getq(e.s.q1, c), e.s.p1);
   }
-  const u64 base = idx, nib = nibble_mask(mask);
-  int mn, mx;
-  index_extremes(base, mask, mn, mx);
-  Sub best = st;
-  u64 best_idx = base;
-#pragma unroll 1
-  for (int v = 0; v < nvar; ++v) {
-    u64 src;
-    if (!selector_variant(base, mask, v, q, (1 << IB) - 1, mn, mx, src)) continue;
-    float e0[NC], e1[NC];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      e0[c] = d0[c];
-      e1[c] = d1[c];
-    }
-    lsq_refit<NC, IB>(xs, src, mask, e0, e1);
-    Sub c;
-    u64 ci;
-    quant_subset<NC, CB, PB, IB>(xs, mask, e0, e1, race, c, ci);
-    if (c.err < best.err) {
-      best = c;
-      best_idx = (base & ~nib) | ci;
-    }
-  }
-  st = best;
-  idx = best_idx;
+  refit_sub<NC, IB, FULL>(xs, src, e.mask, e0, e1);
+  quant_subset<NC, CB, PB, IB, FULL>(xs, e.mask, e0, e1, race, out.s, out.idx);
 }
 
-// The shake of one subset, channels C0..C0+NC-1 with BITS-bit codes. Per
-// round: the weights come from the indices at its start; channel by channel
-// the endpoint steps (da, db) in [-srange, srange]^2 are tried around the
-// round's start codes in order (the start first, strict < after); then the
-// p-bit combinations are re-raced by an exact assign and the subset's indices
-// requantised. The error is the re-race's.
-template <int NC, int C0, int BITS, int PB, int IB>
-__device__ __forceinline__ void shake_subset(const float (&xs)[4][16], uint32_t mask, int rounds,
-                                             int srange, Sub& st, u64& idx) {
-  constexpr int MAXQ = (1 << BITS) - 1;
-  const int side = 2 * srange + 1, centre = (side * side) / 2;
-  const u64 nib = nibble_mask(mask);
-#pragma unroll 1
-  for (int r = 0; r < rounds; ++r) {
-    const u64 widx = idx;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int q0c = getq(st.q0, c), q1c = getq(st.q1, c);
-      float best_e = 0.0f;
-      int b0 = q0c, b1 = q1c;
-#pragma unroll 1
-      for (int j = 0; j < side * side; ++j) {
-        int da = 0, db = 0;
-        if (j > 0) {
-          const int k = (j - 1) + ((j - 1) >= centre ? 1 : 0);
-          da = k / side - srange;
-          db = k % side - srange;
-        }
-        const int nq0 = bcx::clamp_i(q0c + da, 0, MAXQ), nq1 = bcx::clamp_i(q1c + db, 0, MAXQ);
-        const int d0 = deq_ch<BITS, PB>(nq0, st.p0), d1 = deq_ch<BITS, PB>(nq1, st.p1);
-        float e = 0.0f;
-#pragma unroll
-        for (int p = 0; p < 16; ++p)
-          if ((mask >> p) & 1u) {
-            const float diff =
-                (float)lerp64(d0, d1, weight<IB>(get4(widx, p))) - xs[C0 + c][p];
-            e = e + 1.0f * diff * diff;
-          }
-        if (j == 0 || e < best_e) {
-          best_e = e;
-          b0 = nq0;
-          b1 = nq1;
-        }
-      }
-      setq(st.q0, c, b0);
-      setq(st.q1, c, b1);
-    }
-    float best_ne = 0.0f;
-    int bp0 = st.p0, bp1 = st.p1;
-    u64 bidx = 0;
-#pragma unroll 1
-    for (int cb = 0; cb < Combos<PB>::N; ++cb) {
-      const int np0 = PB == 0 ? st.p0 : combo_p0<PB>(cb);
-      const int np1 = PB == 0 ? st.p1 : combo_p1<PB>(cb);
-      int d0[NC], d1[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        d0[c] = deq_ch<BITS, PB>(getq(st.q0, c), np0);
-        d1[c] = deq_ch<BITS, PB>(getq(st.q1, c), np1);
-      }
-      u64 ni;
-      float ne;
-      assign_sub<NC, C0, IB>(xs, d0, d1, mask, ni, ne);
-      if (cb == 0 || ne < best_ne) {
-        best_ne = ne;
-        bp0 = np0;
-        bp1 = np1;
-        bidx = ni;
-      }
-    }
-    st.err = best_ne;
-    st.p0 = bp0;
-    st.p1 = bp1;
-    idx = (idx & ~nib) | bidx;
+// The uber scan of group g over a chunk of slots: the group's items are the
+// contiguous run [g * nvar, (g + 1) * nvar) of the phase, this chunk holds
+// [t0, t0 + nt). Strict < against the group's running state (the entry
+// first), skipped variants passed over.
+__device__ __forceinline__ void uber_pick(const Slot* slot, int t0, int nt, int g, int nvar,
+                                          Sub& st, u64& idx) {
+  const int lo = max(g * nvar, t0) - t0, hi = min((g + 1) * nvar, t0 + nt) - t0;
+  const Slot* sl = slot + lo;
+  float inc = st.err;
+  const int w = scan_min(inc, hi - lo, [&](int i) { return sl[i].s.err; },
+                         [&](int i) { return sl[i].ok != 0; });
+  if (w >= 0) {
+    st = sl[w].s;
+    idx = sl[w].idx;
   }
+}
+
+// the endpoint step (da, db) of shake step j at range SR: j = 0 is the start
+// (0, 0), the others walk [-SR, SR]^2 row by row, the centre left out
+template <int SR>
+__device__ __forceinline__ void shake_step(int j, int& da, int& db) {
+  constexpr int SIDE = 2 * SR + 1, CENTRE = SIDE * SIDE / 2;
+  da = db = 0;
+  if (j > 0) {
+    const int k = (j - 1) + ((j - 1) >= CENTRE ? 1 : 0);
+    da = k / SIDE - SR;
+    db = k % SIDE - SR;
+  }
+}
+
+// channel c's codes of st moved by shake step j
+template <int BITS, int SR>
+__device__ __forceinline__ void shake_codes(const Sub& st, int c, int j, int& q0, int& q1) {
+  constexpr int MAXQ = (1 << BITS) - 1;
+  int da, db;
+  shake_step<SR>(j, da, db);
+  q0 = bcx::clamp_i(getq(st.q0, c) + da, 0, MAXQ);
+  q1 = bcx::clamp_i(getq(st.q1, c) + db, 0, MAXQ);
+}
+
+// shake item: channel c of st stepped by steps j0..j0+K-1, each step's error
+// over the pixels of the mask at the round's weights (w, per pixel), into
+// se[0..K). x: the channel's pixel row. Each error is its own sum over the
+// pixels in ascending order; the K steps share the pixel and weight reads.
+template <int BITS, int PB, int SR, int K, bool FULL>
+__device__ __forceinline__ void shake_item(const float* x, const uint8_t* w, uint32_t mask,
+                                           const Sub& st, int c, int j0, float* se) {
+  int d0[K], d1[K];
+  float e[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    int q0, q1;
+    shake_codes<BITS, SR>(st, c, j0 + i, q0, q1);
+    d0[i] = deq_ch<BITS, PB>(q0, st.p0);
+    d1[i] = deq_ch<BITS, PB>(q1, st.p1);
+    e[i] = 0.0f;
+  }
+  for_pixels<FULL>(mask, [&](int p) {
+    const int wk = w[p];
+    const float xv = x[p];
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const float diff = (float)lerp64(d0[i], d1[i], wk) - xv;
+      e[i] = e[i] + 1.0f * diff * diff;
+    }
+  });
+#pragma unroll
+  for (int i = 0; i < K; ++i) se[i] = e[i];
+}
+
+// The shake scan of one channel: the start (step 0) first, strict < after.
+// Returns the winning step.
+template <int SR>
+__device__ __forceinline__ int shake_pick(const float* se) {
+  constexpr int STEPS = (2 * SR + 1) * (2 * SR + 1);
+  float be = se[0];
+  return 1 + scan_min(be, STEPS - 1, [&](int t) { return se[1 + t]; });
+}
+
+// st with each channel's codes moved by its winning step bj[c]
+template <int NC, int BITS, int SR>
+__device__ __forceinline__ Sub shaken(const Sub& st, const uint8_t* bj) {
+  Sub n = st;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    int q0, q1;
+    shake_codes<BITS, SR>(st, c, bj[c], q0, q1);
+    setq(n.q0, c, q0);
+    setq(n.q1, c, q1);
+  }
+  return n;
+}
+
+// re-race item: combination cb's p-bits on the shaken codes, assigned
+// exactly; PB == 0 keeps the subset's p-bits (0)
+template <int NC, int C0, int BITS, int PB, int IB, bool FULL, class X>
+__device__ __forceinline__ void rerace_item(const X& xs, const Sub& st,
+                                            uint32_t mask, int cb, Rerace& out) {
+  const int np0 = PB == 0 ? st.p0 : combo_p0<PB>(cb);
+  const int np1 = PB == 0 ? st.p1 : combo_p1<PB>(cb);
+  int d0[NC], d1[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    d0[c] = deq_ch<BITS, PB>(getq(st.q0, c), np0);
+    d1[c] = deq_ch<BITS, PB>(getq(st.q1, c), np1);
+  }
+  assign_sub<NC, C0, IB, FULL>(xs, d0, d1, mask, out.idx, out.err, out.w);
+}
+
+// The re-race scan of a group: combination 0 first, strict < after; the
+// winner's p-bits, error, indices and weights become the group's.
+template <int PB>
+__device__ __forceinline__ void rerace_pick(const Rerace* rr, int ncb, Sub& st, u64& idx,
+                                            uint8_t* w) {
+  float be = rr[0].err;
+  const int cb = 1 + scan_min(be, ncb - 1, [&](int t) { return rr[1 + t].err; });
+  st.err = be;
+  st.p0 = PB == 0 ? st.p0 : combo_p0<PB>(cb);
+  st.p1 = PB == 0 ? st.p1 : combo_p1<PB>(cb);
+  idx = rr[cb].idx;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) w[k] = rr[cb].w[k];
+}
+
+// a group's weights at its indices, per pixel of the mask
+template <int IB>
+__device__ __forceinline__ void group_weights(u64 idx, uint32_t mask, uint8_t* w) {
+  for_pixels<false>(mask, [&](int p) { w[p] = (uint8_t)weight<IB>(get4(idx, p)); });
 }
 
 // ------------------------------------------------------ single-index modes ---
@@ -351,71 +669,243 @@ __device__ __forceinline__ uint32_t subset_of(uint32_t bits, int s) {
   return S == 1 ? 0xFFFFu : subset_mask(bits, S, s);
 }
 
+template <int S>
+struct Chain {     // a partition's candidate: per subset its state and fields
+  float err;
+  int pid;
+  Sub s[S];
+  u64 idx[S];
+};
+
+template <int M>
+struct SharedS {
+  enum { S = Mode<M>::S, NC = Mode<M>::NC, NG = 2 * S, NCB = Combos<Mode<M>::PB>::N };
+  enum { L = Shape<M>::LANES, SLOTS = Shape<M>::SLOTS };
+  float xs[4][16];        // the block scaled to 0..255
+  Chain<S> ch[2];         // best and runner-up; after the search ch[0] wins
+  Entry ent[NG];          // refinement groups: chain r, subset s at r * S + s
+  int have2;
+  uint8_t w[NG][16];      // a group's weights at the shake round's indices
+  uint8_t bj[NG][NC];     // a shake round's winning step per channel
+  union {
+    Chain<S> part[L];     // a chunk of partitions
+    Slot slot[SLOTS];     // a chunk of uber items
+    float se[NG * NC * MAX_STEPS];
+    Rerace rr[NG * NCB];
+  } u;
+};
+
+// The narrow shape's struct (Shape<M, 1>): one lane, no refinement, so no
+// refinement groups, weights or slots.
+template <int M>
+struct SharedN {
+  enum { S = Mode<M>::S };
+  float xs[4][16];
+  Chain<S> ch[2];
+  int have2;
+  union {
+    Chain<S> part[1];
+  } u;
+};
+
+// The shake of the single-index modes, SR its step range: per round one item
+// per (group, channel, K steps), a scan per (group, channel), one item per
+// (group, p-bit combination) on the shaken codes, a scan per group.
+template <int M, int SR, class Run>
+__device__ __forceinline__ void single_shake(SharedS<M>& sh, int ng, int rounds, Run&& run) {
+  using T = Mode<M>;
+  constexpr int S = T::S, NC = T::NC, CB = T::CB, PB = T::PB, IB = T::IB;
+  constexpr int NCB = Combos<PB>::N, L = Shape<M>::LANES;
+  constexpr int STEPS = (2 * SR + 1) * (2 * SR + 1), K = 2 * SR + 1, NB = STEPS / K;
+  constexpr bool FULL = S == 1;
+#pragma unroll 1
+  for (int rd = 0; rd < rounds; ++rd) {
+    run([&](int lane) {
+#pragma unroll 1
+      for (int t = lane; t < ng * NC * NB; t += L) {
+        const int gc = t / NB, g = gc / NC, c = gc % NC, j0 = (t % NB) * K;
+        shake_item<CB, PB, SR, K, FULL>(sh.xs[c], sh.w[g], sh.ent[g].mask, sh.ch[g / S].s[g % S], c,
+                                        j0, sh.u.se + gc * STEPS + j0);
+      }
+    });
+    run([&](int lane) {
+#pragma unroll 1
+      for (int gc = lane; gc < ng * NC; gc += L)
+        sh.bj[gc / NC][gc % NC] = (uint8_t)shake_pick<SR>(sh.u.se + gc * STEPS);
+    });
+    run([&](int lane) {
+#pragma unroll 1
+      for (int t = lane; t < ng * NCB; t += L) {
+        const int g = t / NCB;
+        const Sub st = shaken<NC, CB, SR>(sh.ch[g / S].s[g % S], sh.bj[g]);
+        rerace_item<NC, 0, CB, PB, IB, FULL>(sh.xs, st, sh.ent[g].mask, t % NCB, sh.u.rr[t]);
+      }
+    });
+    run([&](int lane) {
+#pragma unroll 1
+      for (int g = lane; g < ng; g += L) {
+        Sub& st = sh.ch[g / S].s[g % S];
+        st = shaken<NC, CB, SR>(st, sh.bj[g]);
+        rerace_pick<PB>(sh.u.rr + g * NCB, NCB, st, sh.ch[g / S].idx[g % S], sh.w[g]);
+      }
+    });
+  }
+}
+
+// Phases c-e of a single-index mode on the best partition (and with keep-2
+// the runner-up): uber, shake, the chain pick.
+template <int M, class Run>
+__device__ __forceinline__ void single_refine(SharedS<M>& sh, bool keep2, int race, int shake,
+                                              int uber, Run&& run) {
+  using T = Mode<M>;
+  constexpr int S = T::S, NC = T::NC, CB = T::CB, PB = T::PB, IB = T::IB;
+  constexpr int L = Shape<M>::LANES, SLOTS = Shape<M>::SLOTS;
+  constexpr bool FULL = S == 1;
+
+  // the refinement: group g = r * S + s, chain r (0 best, 1 runner-up)
+  const int nch = keep2 ? 2 : 1, ng = nch * S;
+  run([&](int lane) {
+#pragma unroll 1
+    for (int g = lane; g < ng; g += L) {
+      const int r = g / S, s = g % S;
+      Entry& e = sh.ent[g];
+      e.s = sh.ch[r].s[s];
+      e.base = sh.ch[r].idx[s];
+      e.mask = subset_of<S>(shape_bits<S>(sh.ch[r].pid), s);
+      index_extremes(e.base, e.mask, e.mn, e.mx);
+    }
+  });
+
+  // c: uber, one item per (group, variant), the variants of a group side by
+  // side, in chunks; per group the entry first, then the variants in order
+  if (uber) {
+    int q;
+    const int nvar = variant_slots(uber, q), total = nvar * ng;
+#pragma unroll 1
+    for (int t0 = 0; t0 < total; t0 += SLOTS) {
+      const int nt = min(SLOTS, total - t0);
+      run([&](int lane) {
+        if (lane >= nt) return;
+        int g = (t0 + lane) / nvar, v = (t0 + lane) % nvar;
+#pragma unroll 1
+        for (int t = lane; t < nt; t += L) {
+          uber_item<NC, CB, PB, IB, FULL>(sh.xs, sh.ent[g], v, q, race, sh.u.slot[t]);
+          for (v += L; v >= nvar; v -= nvar) ++g;
+        }
+      });
+      run([&](int lane) {
+#pragma unroll 1
+        for (int g = lane; g < ng; g += L)
+          uber_pick(sh.u.slot, t0, nt, g, nvar, sh.ch[g / S].s[g % S], sh.ch[g / S].idx[g % S]);
+      });
+    }
+  }
+
+  // d: the shake, round by round, from the weights of the indices it starts
+  // from
+  if (shake) {
+    run([&](int lane) {
+#pragma unroll 1
+      for (int g = lane; g < ng; g += L)
+        group_weights<IB>(sh.ch[g / S].idx[g % S], sh.ent[g].mask, sh.w[g]);
+    });
+    if (shake >= 3)
+      single_shake<M, 2>(sh, ng, shake, run);
+    else
+      single_shake<M, 1>(sh, ng, shake, run);
+  }
+
+  // e: each chain's error over its subsets in order; the first chain, then
+  // the runner-up's on a strict <
+  run([&](int lane) {
+    if (lane != 0) return;
+    float errs[2];
+#pragma unroll 1
+    for (int r = 0; r < nch; ++r) {
+      float e = 0.0f;
+#pragma unroll
+      for (int s = 0; s < S; ++s) e = e + sh.ch[r].s[s].err;
+      errs[r] = sh.ch[r].err = e;
+    }
+    float be = errs[0];
+    if (scan_min(be, nch - 1, [&](int t) { return errs[1 + t]; }) == 0)
+      sh.ch[0] = sh.ch[1];
+  });
+}
+
 // Modes 0/1/2/3/6/7: every shortlisted partition fitted and quantised per
 // subset; the best (and for the 5-bit-or-less multi-subset modes the
 // runner-up too) refined per subset by uber rounds and the shake. ids: the
-// block's shortlist, or null for partitions 0..nids-1.
-template <int M>
-__device__ __forceinline__ void single_mode(const float (&xs)[4][16], const int* ids, int nids,
-                                            int iters, int shake, int uber,
-                                            StateS<Mode<M>::S>& best) {
+// block's shortlist, or null for partitions 0..nids-1. The result is sh.ch[0].
+template <int M, int W, class Sh, class Run>
+__device__ __forceinline__ void single_search(Sh& sh, const int* ids, int nids, int iters,
+                                              int shake, int uber, Run&& run) {
   using T = Mode<M>;
   constexpr int S = T::S, NC = T::NC, CB = T::CB, PB = T::PB, IB = T::IB;
+  constexpr int L = Shape<M, W>::LANES;
+  constexpr bool FULL = S == 1;
   const int nparts = S == 1 ? 1 : nids;
   const bool keep2 = CB <= 5 && S >= 2 && nparts > 1 && (uber || shake);
   // mode 0: the best two p-bit combinations raced exactly, two more uber levels
   constexpr bool low4 = CB <= 4 && PB != 0;
   const int race = low4 ? 2 : 1;
   if (low4 && uber) uber += 2;
-  StateS<S> best2;
-  bool have2 = false;
+
+  // a: one item per partition, its subsets in order, L partitions a chunk;
+  // b: the keep-2 scan in partition order over the chunk's errors, the
+  // winners copied once at the chunk's end (refs: -1 ch[0], -2 ch[1])
 #pragma unroll 1
-  for (int k = 0; k < nparts; ++k) {
-    StateS<S> c;
-    c.pid = S == 1 ? 0 : (ids ? ids[k] : k);
-    c.idx = 0;
-    c.err = 0.0f;
-    const uint32_t bits = shape_bits<S>(c.pid);
+  for (int k0 = 0; k0 < nparts; k0 += L) {
+    const int nk = min(L, nparts - k0);
+    run([&](int lane) {
+      if (lane >= nk) return;
+      Chain<S>& c = sh.u.part[lane];
+      c.pid = S == 1 ? 0 : (ids ? ids[k0 + lane] : k0 + lane);
+      c.err = 0.0f;
+      const uint32_t bits = shape_bits<S>(c.pid);
 #pragma unroll 1
-    for (int s = 0; s < S; ++s) {
-      const uint32_t mask = subset_of<S>(bits, s);
-      float e0[NC], e1[NC];
-      fit_line<NC, IB>(xs, mask, false, iters, e0, e1);
-      u64 idx;
-      quant_subset<NC, CB, PB, IB>(xs, mask, e0, e1, race, c.s[s], idx);
-      c.idx |= idx;
-      c.err = c.err + c.s[s].err;
-    }
-    if (k == 0) {
-      best = c;
-    } else if (keep2) {
-      const bool take = c.err < best.err;
-      const StateS<S> loser = take ? best : c;
-      if (take) best = c;
-      if (!have2 || loser.err < best2.err) {
-        best2 = loser;
-        have2 = true;
+      for (int s = 0; s < S; ++s) {
+        const uint32_t mask = subset_of<S>(bits, s);
+        float e0[NC], e1[NC];
+        fit_sub<NC, IB, FULL>(sh.xs, mask, iters, e0, e1);
+        quant_subset<NC, CB, PB, IB, FULL>(sh.xs, mask, e0, e1, race, c.s[s], c.idx[s]);
+        c.err = c.err + c.s[s].err;
       }
-    } else if (c.err < best.err) {
-      best = c;
-    }
+    });
+    run([&](int lane) {
+      if (lane != 0) return;
+      auto err_of = [&](int ref) {
+        return ref == -1 ? sh.ch[0].err : (ref == -2 ? sh.ch[1].err : sh.u.part[ref].err);
+      };
+      int r0 = -1, r1 = -2;
+      bool have2 = sh.have2 != 0;
+#pragma unroll 1
+      for (int kk = 0; kk < nk; ++kk) {
+        const float e = sh.u.part[kk].err;
+        if (k0 + kk == 0) {
+          r0 = kk;
+          have2 = false;
+        } else if (keep2) {
+          const int a = keep2_step(e, err_of(r0), have2 ? err_of(r1) : 0.0f, have2);
+          if (a & 2) {
+            r1 = (a & 1) ? r0 : kk;
+            have2 = true;
+          }
+          if (a & 1) r0 = kk;
+        } else if (e < err_of(r0)) {
+          r0 = kk;
+        }
+      }
+      if (r1 == -1)
+        sh.ch[1] = sh.ch[0];
+      else if (r1 >= 0)
+        sh.ch[1] = sh.u.part[r1];
+      if (r0 >= 0) sh.ch[0] = sh.u.part[r0];
+      sh.have2 = have2 ? 1 : 0;
+    });
   }
-  if (!(uber || shake)) return;
-#pragma unroll 1
-  for (int r = 0; r < (keep2 ? 2 : 1); ++r) {
-    StateS<S> st = r ? best2 : best;
-    const uint32_t bits = shape_bits<S>(st.pid);
-#pragma unroll 1
-    for (int s = 0; s < S; ++s) {
-      const uint32_t mask = subset_of<S>(bits, s);
-      if (uber) uber_subset<NC, CB, PB, IB>(xs, mask, uber, race, st.s[s], st.idx);
-      if (shake)
-        shake_subset<NC, 0, CB, PB, IB>(xs, mask, shake, shake >= 3 ? 2 : 1, st.s[s], st.idx);
-    }
-    st.err = 0.0f;
-#pragma unroll
-    for (int s = 0; s < S; ++s) st.err = st.err + st.s[s].err;
-    if (r == 0 || st.err < best.err) best = st;
+  if constexpr (W == 0) {
+    if (uber || shake) single_refine<M>(sh, keep2, race, shake, uber, run);
   }
 }
 
@@ -476,7 +966,35 @@ __device__ __forceinline__ Bits128 pack_single(const StateS<Mode<M>::S>& st) {
   return b;
 }
 
+template <int M>
+__device__ __forceinline__ Bits128 pack_chain(const Chain<Mode<M>::S>& c) {
+  StateS<Mode<M>::S> st;
+  st.err = c.err;
+  st.pid = c.pid;
+  st.idx = 0;
+#pragma unroll
+  for (int s = 0; s < Mode<M>::S; ++s) {
+    st.s[s] = c.s[s];
+    st.idx |= c.idx[s];
+  }
+  return pack_single<M>(st);
+}
+
 // --------------------------------------------------------- dual-index modes ---
+// The block's channel rows under rotation rot, read as xs[c][p] like the
+// block itself: rotation r swaps channel r - 1 with alpha.
+struct Rows {
+  const float* r[4];
+  __device__ __forceinline__ const float* operator[](int c) const { return r[c]; }
+};
+
+__device__ __forceinline__ Rows rotated(const float (&xs)[4][16], int rot) {
+  Rows v;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) v.r[c] = xs[rot > 0 && c == rot - 1 ? 3 : (rot > 0 && c == 3 ? rot - 1 : c)];
+  return v;
+}
+
 struct DState {
   float err, cerr, aerr;
   int rot, sel;
@@ -485,36 +1003,20 @@ struct DState {
   u64 cidx, aidx;
 };
 
-// rotation r swaps channel r - 1 with alpha; applying it twice undoes it
-__device__ __forceinline__ void rotate(float (&xs)[4][16], int rot) {
-#pragma unroll
-  for (int p = 0; p < 16; ++p) {
-    const float a = xs[3][p];
-    if (rot == 1) {
-      xs[3][p] = xs[0][p];
-      xs[0][p] = a;
-    } else if (rot == 2) {
-      xs[3][p] = xs[1][p];
-      xs[1][p] = a;
-    } else if (rot == 3) {
-      xs[3][p] = xs[2][p];
-      xs[2][p] = a;
-    }
-  }
-}
-
-// least-squares scalar endpoints for fixed levels; (f0, f1) where singular
-__device__ __forceinline__ void lsq_scalar(const float (&v)[16], const float (&a)[16], float f0,
-                                           float f1, float& e0, float& e1) {
+// least-squares scalar endpoints for the levels a(p); (f0, f1) where singular
+template <class A>
+__device__ __forceinline__ void lsq_scalar(const float* v, A&& a_of, float f0, float f1,
+                                           float& e0, float& e1) {
   float q00 = 0.0f, q01 = 0.0f, q11 = 0.0f, b0 = 0.0f, b1 = 0.0f;
-#pragma unroll
+#pragma unroll 1
   for (int p = 0; p < 16; ++p) {
-    const float one_a = 1.0f - a[p];
+    const float a = a_of(p);
+    const float one_a = 1.0f - a;
     q00 = q00 + one_a * one_a;
-    q01 = q01 + one_a * a[p];
-    q11 = q11 + a[p] * a[p];
+    q01 = q01 + one_a * a;
+    q11 = q11 + a * a;
     b0 = b0 + one_a * v[p];
-    b1 = b1 + a[p] * v[p];
+    b1 = b1 + a * v[p];
   }
   const float det = q00 * q11 - q01 * q01;
   const bool ok = fabsf(det) > 1e-6f;
@@ -527,11 +1029,11 @@ __device__ __forceinline__ void lsq_scalar(const float (&v)[16], const float (&a
 
 // each pixel's nearest entry of the decoded scalar palette (first of equals)
 template <int IB>
-__device__ __forceinline__ void nearest_scalar(const float (&v)[16], int d0, int d1, u64& idx,
+__device__ __forceinline__ void nearest_scalar(const float* v, int d0, int d1, u64& idx,
                                                float& err) {
-  idx = 0;
-  err = 0.0f;
-#pragma unroll
+  u64 acc = 0;
+  float e = 0.0f;
+#pragma unroll 1
   for (int p = 0; p < 16; ++p) {
     float bd = 0.0f;
     int bi = 0;
@@ -544,42 +1046,41 @@ __device__ __forceinline__ void nearest_scalar(const float (&v)[16], int d0, int
         bi = k;
       }
     }
-    idx |= (u64)bi << (4 * p);
-    err = err + bd;
+    acc |= (u64)bi << (4 * p);
+    e = e + bd;
   }
+  idx = acc;
+  err = e;
 }
 
 // the rotated channel's scalar fit: min/max, `iters` least-squares rounds
 // against the nearest level, quantised, nearest entries
 template <int BITS, int IB>
-__device__ __forceinline__ void fit_scalar(const float (&v)[16], int iters, float& err, int& q0,
+__device__ __forceinline__ void fit_scalar(const float* v, int iters, float& err, int& q0,
                                            int& q1, u64& idx) {
   float e0 = v[0], e1 = v[0];
-#pragma unroll
+#pragma unroll 1
   for (int p = 1; p < 16; ++p) {
     e0 = fminf(e0, v[p]);
     e1 = fmaxf(e1, v[p]);
   }
 #pragma unroll 1
   for (int it = 0; it < iters; ++it) {
-    const float span = e1 - e0;
-    float a[16];
-#pragma unroll
-    for (int p = 0; p < 16; ++p) {
-      float bd = 0.0f;
-      a[p] = 0.0f;
+    const float span = e1 - e0, lo = e0;
+    lsq_scalar(v, [&](int p) {
+      float bd = 0.0f, a = 0.0f;
 #pragma unroll
       for (int k = 0; k < (1 << IB); ++k) {
         const float l = level<IB>(k);
-        const float dd = v[p] - (e0 + l * span);
+        const float dd = v[p] - (lo + l * span);
         const float d = dd * dd;
         if (k == 0 || d < bd) {
           bd = d;
-          a[p] = l;
+          a = l;
         }
       }
-    }
-    lsq_scalar(v, a, e0, e1, e0, e1);
+      return a;
+    }, e0, e1, e0, e1);
   }
   int d0, d1;
   quant_plain<BITS>(e0, q0, d0);
@@ -587,49 +1088,15 @@ __device__ __forceinline__ void fit_scalar(const float (&v)[16], int iters, floa
   nearest_scalar<IB>(v, d0, d1, idx, err);
 }
 
-// uber selector rounds on the scalar channel; the least-squares fallback is
-// (0, 255)
-template <int BITS, int IB>
-__device__ __forceinline__ void uber_scalar(const float (&v)[16], int uber, float& err, int& q0,
-                                            int& q1, u64& idx) {
-  int q;
-  const int nvar = variant_slots(uber, q);
-  const u64 base = idx;
-  int mn, mx;
-  index_extremes(base, 0xFFFFu, mn, mx);
-#pragma unroll 1
-  for (int vv = 0; vv < nvar; ++vv) {
-    u64 src;
-    if (!selector_variant(base, 0xFFFFu, vv, q, (1 << IB) - 1, mn, mx, src)) continue;
-    float a[16];
-#pragma unroll
-    for (int p = 0; p < 16; ++p) a[p] = level<IB>(get4(src, p));
-    float e0, e1;
-    lsq_scalar(v, a, 0.0f, 255.0f, e0, e1);
-    int c0, c1, d0, d1;
-    quant_plain<BITS>(e0, c0, d0);
-    quant_plain<BITS>(e1, c1, d1);
-    u64 ci;
-    float ce;
-    nearest_scalar<IB>(v, d0, d1, ci, ce);
-    if (ce < err) {
-      err = ce;
-      q0 = c0;
-      q1 = c1;
-      idx = ci;
-    }
-  }
-}
-
 // one (rotation, index selection) candidate on the rotated block: colour with
 // CIB-bit indices, the rotated channel with AIB-bit indices
 template <int M, int CIB, int AIB>
-__device__ __forceinline__ void dual_candidate(const float (&xs)[4][16], int iters, DState& c) {
+__device__ __forceinline__ void dual_candidate(const Rows& xs, int iters, DState& c) {
   using T = Mode<M>;
   float e0[3], e1[3];
-  fit_line<3, CIB>(xs, 0xFFFFu, false, iters, e0, e1);
+  fit_sub<3, CIB, true>(xs, 0xFFFFu, iters, e0, e1);
   Sub cs;
-  quant_subset<3, T::CB, 0, CIB>(xs, 0xFFFFu, e0, e1, 1, cs, c.cidx);
+  quant_subset<3, T::CB, 0, CIB, true>(xs, 0xFFFFu, e0, e1, 1, cs, c.cidx);
   c.cerr = cs.err;
   c.qc0 = cs.q0;
   c.qc1 = cs.q1;
@@ -637,89 +1104,242 @@ __device__ __forceinline__ void dual_candidate(const float (&xs)[4][16], int ite
   c.err = c.cerr + c.aerr;
 }
 
-// uber (at most level 2) and shake (steps of 1) on both channel groups of a
-// candidate; taken where the sum improves
+// uber item v of a dual group: kind 0 the colour endpoints (refit, falling
+// back to the entry's decoded endpoints), kind 1 the scalar channel (refit,
+// falling back to (0, 255)); ok = 0 for the identity variant
 template <int M, int CIB, int AIB>
-__device__ __forceinline__ void dual_refine(const float (&xs)[4][16], int shake, int uber,
-                                            DState& st) {
+__device__ __forceinline__ void dual_uber_item(const Rows& xs, const Entry& e, int kind,
+                                               int v, int q, Slot& out) {
   using T = Mode<M>;
-  Sub cs = {st.cerr, st.qc0, st.qc1, 0, 0};
-  u64 cidx = st.cidx, aidx = st.aidx;
-  float aerr = st.aerr;
-  int qa0 = st.qa0, qa1 = st.qa1;
-  if (uber) {
-    const int u2 = uber < 2 ? uber : 2;
-    uber_subset<3, T::CB, 0, CIB>(xs, 0xFFFFu, u2, 1, cs, cidx);
-    uber_scalar<T::AB, AIB>(xs[3], u2, aerr, qa0, qa1, aidx);
+  u64 src;
+  out.ok = sel_variant<true>(e.base, 0xFFFFu, v, q, (1 << (kind ? AIB : CIB)) - 1, e.mn, e.mx, src)
+               ? 1 : 0;
+  if (!out.ok) return;
+  if (kind == 0) {
+    float e0[3], e1[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      e0[c] = (float)deq_ch<T::CB, 0>(getq(e.s.q0, c), 0);
+      e1[c] = (float)deq_ch<T::CB, 0>(getq(e.s.q1, c), 0);
+    }
+    refit_sub<3, CIB, true>(xs, src, 0xFFFFu, e0, e1);
+    quant_subset<3, T::CB, 0, CIB, true>(xs, 0xFFFFu, e0, e1, 1, out.s, out.idx);
+  } else {
+    float e0, e1;
+    lsq_scalar(xs[3], [&](int p) { return level<AIB>(get4(src, p)); }, 0.0f, 255.0f, e0, e1);
+    int c0, c1, d0, d1;
+    quant_plain<T::AB>(e0, c0, d0);
+    quant_plain<T::AB>(e1, c1, d1);
+    nearest_scalar<AIB>(xs[3], d0, d1, out.idx, out.s.err);
+    out.s.q0 = (uint32_t)c0;
+    out.s.q1 = (uint32_t)c1;
+    out.s.p0 = out.s.p1 = 0;
   }
-  if (shake) {
-    shake_subset<3, 0, T::CB, 0, CIB>(xs, 0xFFFFu, shake, 1, cs, cidx);
-    Sub as = {aerr, (uint32_t)qa0, (uint32_t)qa1, 0, 0};
-    shake_subset<1, 3, T::AB, 0, AIB>(xs, 0xFFFFu, shake, 1, as, aidx);
-    aerr = as.err;
-    qa0 = getq(as.q0, 0);
-    qa1 = getq(as.q1, 0);
-  }
-  if (cs.err + aerr < st.err) {
-    st.cerr = cs.err;
-    st.aerr = aerr;
-    st.qc0 = cs.q0;
-    st.qc1 = cs.q1;
-    st.qa0 = qa0;
-    st.qa1 = qa1;
-    st.cidx = cidx;
-    st.aidx = aidx;
-  }
-  st.err = st.cerr + st.aerr;
 }
 
-// Modes 4/5: 4 rotations x the index selections, the best (and with keep 2
-// the runner-up) refined; a refined candidate is refined only on its own
-// index selection, which is all the plain version ever takes from it.
 template <int M>
-__device__ __forceinline__ void dual_mode(float (&xs)[4][16], int iters, int shake, int uber,
-                                          int keep, DState& best) {
+struct SharedD {
+  enum { NCAND = 4 * Mode<M>::NSEL, SLOTS = Shape<M>::SLOTS };
+  float xs[4][16];     // the block scaled to 0..255
+  DState ch[2];        // best and runner-up; after the search ch[0] wins
+  Sub gs[4];           // refinement groups: chain r, kind (colour, scalar)
+  u64 gi[4];           //   at r * 2 + kind
+  Entry ent[4];
+  uint8_t w[4][16];    // a group's weights at the shake round's indices
+  uint8_t bj[4][3];    // a shake round's winning step per channel
+  union {
+    DState cand[NCAND];  // (rotation, selection) at rot * NSEL + sel
+    Slot slot[SLOTS];
+    float se[2 * 4 * 9];
+    Rerace rr[4];
+  } u;
+};
+
+// Modes 4/5: 4 rotations x the index selections, the best (and with keep 2
+// the runner-up) refined: uber (at most level 2) and shake (steps of 1) on
+// the colour endpoints and on the scalar channel, taken where the sum
+// improves. A refined candidate is refined only on its own index selection,
+// which is all the plain version ever takes from it. Items are dealt so that
+// the lanes of a step share an index selection and a channel group, and so
+// run one code path. The result is sh.ch[0].
+template <int M, class Run>
+__device__ __forceinline__ void dual_search(SharedD<M>& sh, int iters, int shake, int uber,
+                                            int keep, Run&& run) {
   using T = Mode<M>;
+  constexpr int NSEL = T::NSEL, IB = T::IB, IB2 = T::IB2, L = Shape<M>::LANES;
+  constexpr int SLOTS = Shape<M>::SLOTS;
   const bool keep2 = keep > 1 && (uber || shake);
-  DState best2;
+  // a: item t is selection t / 4, rotation t % 4
+  run([&](int lane) {
 #pragma unroll 1
-  for (int rot = 0; rot < 4; ++rot) {
-    rotate(xs, rot);
-#pragma unroll 1
-    for (int sel = 0; sel < T::NSEL; ++sel) {
-      DState c;
+    for (int t = lane; t < 4 * NSEL; t += L) {
+      const int rot = t % 4, sel = t / 4;
+      DState& c = sh.u.cand[rot * NSEL + sel];
       c.rot = rot;
       c.sel = sel;
-      if (T::NSEL == 1 || sel == 0)
-        dual_candidate<M, T::IB, T::IB2>(xs, iters, c);
+      if (NSEL == 1 || sel == 0)
+        dual_candidate<M, IB, IB2>(rotated(sh.xs, rot), iters, c);
       else
-        dual_candidate<M, T::IB2, T::IB>(xs, iters, c);
-      const int k = rot * T::NSEL + sel;
-      if (k == 0) {
-        best = c;
-      } else if (keep2) {
-        const bool take = c.err < best.err;
-        const DState loser = take ? best : c;
-        if (take) best = c;
-        if (k == 1 || loser.err < best2.err) best2 = loser;
-      } else if (c.err < best.err) {
-        best = c;
+        dual_candidate<M, IB2, IB>(rotated(sh.xs, rot), iters, c);
+    }
+  });
+  // b: the keep-2 scan in (rotation, selection) order
+  run([&](int lane) {
+    if (lane != 0) return;
+    sh.ch[0] = sh.u.cand[0];
+#pragma unroll 1
+    for (int k = 1; k < 4 * NSEL; ++k) {
+      const DState& c = sh.u.cand[k];
+      if (keep2) {
+        const int a = keep2_step(c.err, sh.ch[0].err, sh.ch[1].err, k > 1);
+        if (a & 2) sh.ch[1] = (a & 1) ? sh.ch[0] : c;
+        if (a & 1) sh.ch[0] = c;
+      } else if (c.err < sh.ch[0].err) {
+        sh.ch[0] = c;
       }
     }
-    rotate(xs, rot);
-  }
+  });
   if (!(uber || shake)) return;
+
+  const int nch = keep2 ? 2 : 1, ng = 2 * nch;
+  run([&](int lane) {
 #pragma unroll 1
-  for (int r = 0; r < (keep2 ? 2 : 1); ++r) {
-    DState st = r ? best2 : best;
-    rotate(xs, st.rot);
-    if (T::NSEL == 1 || st.sel == 0)
-      dual_refine<M, T::IB, T::IB2>(xs, shake, uber, st);
-    else
-      dual_refine<M, T::IB2, T::IB>(xs, shake, uber, st);
-    rotate(xs, st.rot);
-    if (r == 0 || st.err < best.err) best = st;
+    for (int g = lane; g < ng; g += L) {
+      const DState& st = sh.ch[g / 2];
+      Sub& s = sh.gs[g];
+      if (g % 2 == 0) {
+        s = {st.cerr, st.qc0, st.qc1, 0, 0};
+        sh.gi[g] = st.cidx;
+      } else {
+        s = {st.aerr, (uint32_t)st.qa0, (uint32_t)st.qa1, 0, 0};
+        sh.gi[g] = st.aidx;
+      }
+      Entry& e = sh.ent[g];
+      e.s = s;
+      e.base = sh.gi[g];
+      e.mask = 0xFFFFu;
+      index_extremes(e.base, 0xFFFFu, e.mn, e.mx);
+    }
+  });
+  // c: uber, one item per (group, variant), the variants of a group side by
+  // side
+  if (uber) {
+    int q;
+    const int nvar = variant_slots(uber < 2 ? uber : 2, q), total = nvar * ng;
+#pragma unroll 1
+    for (int t0 = 0; t0 < total; t0 += SLOTS) {
+      const int nt = min(SLOTS, total - t0);
+      run([&](int lane) {
+        if (lane >= nt) return;
+        int g = (t0 + lane) / nvar, v = (t0 + lane) % nvar;
+#pragma unroll 1
+        for (int t = lane; t < nt; t += L) {
+          const DState& st = sh.ch[g / 2];
+          if (NSEL == 1 || st.sel == 0)
+            dual_uber_item<M, IB, IB2>(rotated(sh.xs, st.rot), sh.ent[g], g % 2, v, q, sh.u.slot[t]);
+          else
+            dual_uber_item<M, IB2, IB>(rotated(sh.xs, st.rot), sh.ent[g], g % 2, v, q, sh.u.slot[t]);
+          for (v += L; v >= nvar; v -= nvar) ++g;
+        }
+      });
+      run([&](int lane) {
+#pragma unroll 1
+        for (int g = lane; g < ng; g += L) uber_pick(sh.u.slot, t0, nt, g, nvar, sh.gs[g], sh.gi[g]);
+      });
+    }
   }
+  // d: the shake; per chain 4 channel passes of 9 steps: colour 0-2 (group
+  // r * 2), scalar (group r * 2 + 1)
+  if (shake) {
+    run([&](int lane) {
+#pragma unroll 1
+      for (int g = lane; g < ng; g += L) {
+        const bool s0 = NSEL == 1 || sh.ch[g / 2].sel == 0;
+        if (s0 == (g % 2 == 0))
+          group_weights<IB>(sh.gi[g], 0xFFFFu, sh.w[g]);
+        else
+          group_weights<IB2>(sh.gi[g], 0xFFFFu, sh.w[g]);
+      }
+    });
+#pragma unroll 1
+    for (int rd = 0; rd < shake; ++rd) {
+      run([&](int lane) {
+#pragma unroll 1
+        for (int t = lane; t < nch * 4 * 3; t += L) {
+          const int r = t / 12, cc = (t / 3) % 4, g = 2 * r + (cc == 3 ? 1 : 0), j0 = (t % 3) * 3;
+          const Rows xs = rotated(sh.xs, sh.ch[r].rot);
+          float* se = sh.u.se + (r * 4 + cc) * 9 + j0;
+          if (cc < 3)
+            shake_item<T::CB, 0, 1, 3, true>(xs[cc], sh.w[g], 0xFFFFu, sh.gs[g], cc, j0, se);
+          else
+            shake_item<T::AB, 0, 1, 3, true>(xs[3], sh.w[g], 0xFFFFu, sh.gs[g], 0, j0, se);
+        }
+      });
+      run([&](int lane) {
+#pragma unroll 1
+        for (int rc = lane; rc < nch * 4; rc += L) {
+          const int r = rc / 4, cc = rc % 4;
+          sh.bj[2 * r + (cc == 3 ? 1 : 0)][cc == 3 ? 0 : cc] =
+              (uint8_t)shake_pick<1>(sh.u.se + rc * 9);
+        }
+      });
+      // the re-race has one combination (no p-bits): the requantise
+      run([&](int lane) {
+#pragma unroll 1
+        for (int g = lane; g < ng; g += L) {
+          const DState& st = sh.ch[g / 2];
+          const bool s0 = NSEL == 1 || st.sel == 0;
+          const Rows xs = rotated(sh.xs, st.rot);
+          if (g % 2 == 0) {
+            const Sub n = shaken<3, T::CB, 1>(sh.gs[g], sh.bj[g]);
+            if (s0)
+              rerace_item<3, 0, T::CB, 0, IB, true>(xs, n, 0xFFFFu, 0, sh.u.rr[g]);
+            else
+              rerace_item<3, 0, T::CB, 0, IB2, true>(xs, n, 0xFFFFu, 0, sh.u.rr[g]);
+          } else {
+            const Sub n = shaken<1, T::AB, 1>(sh.gs[g], sh.bj[g]);
+            if (s0)
+              rerace_item<1, 3, T::AB, 0, IB2, true>(xs, n, 0xFFFFu, 0, sh.u.rr[g]);
+            else
+              rerace_item<1, 3, T::AB, 0, IB, true>(xs, n, 0xFFFFu, 0, sh.u.rr[g]);
+          }
+        }
+      });
+      run([&](int lane) {
+#pragma unroll 1
+        for (int g = lane; g < ng; g += L) {
+          Sub& gs = sh.gs[g];
+          gs = g % 2 == 0 ? shaken<3, T::CB, 1>(gs, sh.bj[g]) : shaken<1, T::AB, 1>(gs, sh.bj[g]);
+          rerace_pick<0>(sh.u.rr + g, 1, gs, sh.gi[g], sh.w[g]);
+        }
+      });
+    }
+  }
+  // e: each chain takes its refined groups where their sum is strictly
+  // smaller; the first chain, then the runner-up's on a strict <
+  run([&](int lane) {
+    if (lane != 0) return;
+    float errs[2];
+#pragma unroll 1
+    for (int r = 0; r < nch; ++r) {
+      DState& st = sh.ch[r];
+      const Sub &cs = sh.gs[2 * r], &as = sh.gs[2 * r + 1];
+      if (cs.err + as.err < st.err) {
+        st.cerr = cs.err;
+        st.aerr = as.err;
+        st.qc0 = cs.q0;
+        st.qc1 = cs.q1;
+        st.qa0 = getq(as.q0, 0);
+        st.qa1 = getq(as.q1, 0);
+        st.cidx = sh.gi[2 * r];
+        st.aidx = sh.gi[2 * r + 1];
+      }
+      errs[r] = st.err = st.cerr + st.aerr;
+    }
+    float be = errs[0];
+    if (scan_min(be, nch - 1, [&](int t) { return errs[1 + t]; }) == 0)
+      sh.ch[0] = sh.ch[1];
+  });
 }
 
 // Field 1 (IB bits) drives colour iff sel == 0; each field's anchor fix-up
@@ -780,78 +1400,128 @@ __device__ __forceinline__ Bits128 pack_dual(const DState& st) {
   return b;
 }
 
-// ---- one block, one mode. xs: the block scaled to 0..255 (the dual modes
-// rotate it and restore it). Modes 0-3 add the alpha channel's distance to
-// 255, left to right over the pixels.
+// ---- one block, one mode
+template <int M, int W = 0>
+struct SharedOf {
+  using type = SharedS<M>;
+};
 template <int M>
-__device__ __forceinline__ void full_mode(float (&xs)[4][16], const int* ids, int nids, int iters,
-                                          int shake, int uber, int keep, Bits128& out, float& err) {
-  using T = Mode<M>;
-  if constexpr (M == 4 || M == 5) {
-    DState st;
-    dual_mode<M>(xs, iters, shake, uber, keep, st);
-    out = pack_dual<M>(st);
-    err = st.err;
-  } else {
-    StateS<T::S> st;
-    single_mode<M>(xs, ids, nids, iters, shake, uber, st);
-    out = pack_single<M>(st);
-    err = st.err;
-    if (T::AB == 0) {
-      float pen = 0.0f;
-#pragma unroll
-      for (int p = 0; p < 16; ++p) {
-        const float d = xs[3][p] - 255.0f;
-        pen = pen + d * d;
-      }
-      err = err + pen;
-    }
-  }
-}
+struct SharedOf<M, 1> {
+  using type = SharedN<M>;
+};
+template <>
+struct SharedOf<4> {
+  using type = SharedD<4>;
+};
+template <>
+struct SharedOf<5> {
+  using type = SharedD<5>;
+};
 
-// ---- block i of the kernel of mode M. A barred block (bar[i] set, modes
-// 6/7 only) returns at once: with `merge` its running best stays, without it
-// the outputs are words 0 and error 3.4e38. That is the output of running the
-// mode and masking its error: the caller passes `bar` only when some mode 0-5
-// is enabled, those modes run first (mode order), and their error is finite,
-// so a masked error never wins the strict compare of the merge.
-template <int M>
-__device__ __forceinline__ void full_block(const float* __restrict__ x, int64_t i,
+// Block i of the kernel of mode M, on the group's shared struct. A barred
+// block (bar[i] set, modes 6/7 only) returns at once: with `merge` its running
+// best stays, without it the outputs are words 0 and error 3.4e38. That is the
+// output of running the mode and masking its error: the caller passes `bar`
+// only when some mode 0-5 is enabled, those modes run first (mode order), and
+// their error is finite, so a masked error never wins the strict compare of the
+// merge. Modes 0-3 add the alpha channel's distance to 255, left to right over
+// the pixels.
+template <int M, int W, class Run>
+__device__ __forceinline__ void full_block(typename SharedOf<M, W>::type& sh,
+                                           const float* __restrict__ x, int64_t i,
                                            const int* __restrict__ ids, int nids, int iters,
                                            int shake, int uber, int keep,
                                            const uint8_t* __restrict__ bar, int merge,
-                                           uint4* __restrict__ words, float* __restrict__ err) {
+                                           uint4* __restrict__ words, float* __restrict__ err,
+                                           Run&& run) {
   if ((M == 6 || M == 7) && bar != nullptr && bar[i]) {
-    if (!merge) {
-      words[i] = make_uint4(0u, 0u, 0u, 0u);
-      err[i] = BIG;
-    }
+    run([&](int lane) {
+      if (lane == 0 && !merge) {
+        words[i] = make_uint4(0u, 0u, 0u, 0u);
+        err[i] = BIG;
+      }
+    });
     return;
   }
-  float xs[4][16];
-  bcx::load_block<4>(x + i * 64, 4, xs);
-  Bits128 out;
-  float e;
-  full_mode<M>(xs, ids ? ids + i * nids : nullptr, nids, iters, shake, uber, keep, out, e);
-  if (merge && !(e < err[i])) return;
-  words[i] = make_uint4((uint32_t)out.lo, (uint32_t)(out.lo >> 32), (uint32_t)out.hi,
-                        (uint32_t)(out.hi >> 32));
-  err[i] = e;
+  // the load: one float4 per pixel, the group's lanes side by side
+  run([&](int lane) {
+#pragma unroll 1
+    for (int p = lane; p < 16; p += Shape<M, W>::LANES) {
+      const float4 v = reinterpret_cast<const float4*>(x + i * 64)[p];
+      sh.xs[0][p] = v.x * 255.0f;
+      sh.xs[1][p] = v.y * 255.0f;
+      sh.xs[2][p] = v.z * 255.0f;
+      sh.xs[3][p] = v.w * 255.0f;
+    }
+  });
+  if constexpr (M == 4 || M == 5) {
+    dual_search<M>(sh, iters, shake, uber, keep, run);
+  } else {
+    single_search<M, W>(sh, ids ? ids + i * nids : nullptr, nids, iters, shake, uber, run);
+  }
+  run([&](int lane) {
+    if (lane != 0) return;
+    Bits128 out;
+    float e;
+    if constexpr (M == 4 || M == 5) {
+      out = pack_dual<M>(sh.ch[0]);
+      e = sh.ch[0].err;
+    } else {
+      out = pack_chain<M>(sh.ch[0]);
+      e = sh.ch[0].err;
+      if (Mode<M>::AB == 0) {
+        float pen = 0.0f;
+#pragma unroll
+        for (int p = 0; p < 16; ++p) {
+          const float d = sh.xs[3][p] - 255.0f;
+          pen = pen + d * d;
+        }
+        e = e + pen;
+      }
+    }
+    if (merge && !(e < err[i])) return;
+    words[i] = make_uint4((uint32_t)out.lo, (uint32_t)(out.lo >> 32), (uint32_t)out.hi,
+                          (uint32_t)(out.hi >> 32));
+    err[i] = e;
+  });
 }
 
 #ifdef __CUDACC__
 // The kernel and its launcher; the host build of this header for the tests
-// stops before them.
-template <int M>
-__global__ void __launch_bounds__(bcx::THREADS)
+// stops before them. Group `grp` of the CTA encodes block
+// blockIdx.x * BLOCKS + grp; its barrier is __syncwarp over its lanes (in the
+// narrow shape, a lane alone, nothing to wait for).
+template <int M, int W>
+__global__ void __launch_bounds__(Shape<M, W>::THREADS, Shape<M, W>::MIN_CTAS)
 bc7_full_kernel(const float* __restrict__ x, int64_t n, const int* __restrict__ ids, int nids,
                 int iters, int shake, int uber, int keep, const uint8_t* __restrict__ bar,
                 int merge, uint4* __restrict__ words, float* __restrict__ err) {
-  const int64_t i = bcx::block_index();
-  if (i < n) full_block<M>(x, i, ids, nids, iters, shake, uber, keep, bar, merge, words, err);
+  constexpr int L = Shape<M, W>::LANES, B = Shape<M, W>::BLOCKS;
+  static_assert(32 % L == 0, "a group lies inside one warp");
+  __shared__ typename SharedOf<M, W>::type sh[B];
+  const int grp = threadIdx.x / L, lane = threadIdx.x % L;
+  const int64_t i = (int64_t)blockIdx.x * B + grp;
+  if (i >= n) return;
+  const unsigned gmask = (unsigned)((1ull << L) - 1u) << (L * (grp % (32 / L)));
+  full_block<M, W>(sh[grp], x, i, ids, nids, iters, shake, uber, keep, bar, merge, words, err,
+                   [&](auto&& f) {
+                     f(lane);
+                     if constexpr (L > 1) __syncwarp(gmask);
+                   });
 }
 
-// Launches mode M's kernel on `stream`; returns cudaGetLastError().
+template <int M, int W>
+inline void launch_shape(const float* x, long long n, const int* ids, int nids, int iters,
+                         int shake, int uber, int keep, const uint8_t* bar, int merge,
+                         uint32_t* words, float* err, void* stream) {
+  constexpr int B = Shape<M, W>::BLOCKS;
+  const unsigned grid = (unsigned)((n + B - 1) / B);
+  bc7_full_kernel<M, W><<<grid, Shape<M, W>::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, n, ids, nids, iters, shake, uber, keep, bar, merge, reinterpret_cast<uint4*>(words), err);
+}
+
+// Launches mode M's kernel on `stream`, in the shape narrow_shape picks;
+// returns cudaGetLastError().
 template <int M>
 inline int launch_full(const float* x, long long n, const int* ids, int nids, int iters, int shake,
                        int uber, int keep, const uint8_t* bar, int merge, uint32_t* words,
@@ -859,8 +1529,13 @@ inline int launch_full(const float* x, long long n, const int* ids, int nids, in
   if (int rc = bcx::check_args(x, 4)) return rc;
   if (Mode<M>::S > 1 && (nids < 1 || nids > 64)) return (int)cudaErrorInvalidValue;
   if (iters < 0 || shake < 0 || uber < 0 || keep < 1 || keep > 2) return (int)cudaErrorInvalidValue;
-  bc7_full_kernel<M><<<bcx::grid_for(n), bcx::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, n, ids, nids, iters, shake, uber, keep, bar, merge, reinterpret_cast<uint4*>(words), err);
+  if constexpr (Shape<M>::DUAL) {
+    launch_shape<M, 0>(x, n, ids, nids, iters, shake, uber, keep, bar, merge, words, err, stream);
+  } else if (narrow_shape<M>(shake, uber)) {
+    launch_shape<M, 1>(x, n, ids, nids, iters, shake, uber, keep, bar, merge, words, err, stream);
+  } else {
+    launch_shape<M, 0>(x, n, ids, nids, iters, shake, uber, keep, bar, merge, words, err, stream);
+  }
   return (int)cudaGetLastError();
 }
 #endif  // __CUDACC__

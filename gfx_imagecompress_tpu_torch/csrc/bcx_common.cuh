@@ -1,6 +1,8 @@
 // Shared by the kernel sources: launch shape, pixel loads, argument check.
 //
-// One thread encodes one 4x4 block; 128 threads per CTA. A thread reads its
+// In the kernels that launch with THREADS and block_index (all but the full
+// BC7 search, where 16 lanes share a block: bc7_full_search.cuh), one thread
+// encodes one 4x4 block; 128 threads per CTA. A thread reads its
 // 16 pixels straight from the (N,16,C) tensor image_to_blocks() produced -
 // 16-byte loads for RGBA - rather than from a channel-major transpose: the
 // searches are bound by operations, not bytes, every byte of each cache line

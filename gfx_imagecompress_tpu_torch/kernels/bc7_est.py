@@ -29,8 +29,10 @@ import torch
 from ..tables.bc7_tables import P2, P3
 from .bc4 import F32, I32
 
-# launches of the CUDA kernel made by the wrapper below
+# launches of the CUDA kernel made by the wrapper below; and the same launches
+# by configuration, keyed by config_key
 LAUNCHES = {"bc7_est": 0}
+LAUNCHES_BY_CONFIG: dict = {}
 
 MAX_K = 16                # most ids the CUDA kernel returns (its largest
                           # running-best slot count)
@@ -199,4 +201,16 @@ def estimate_topk(blocks: torch.Tensor, *, chans: int, subsets: int, plist,
                           plist_c, len(plist), int(levels), int(k),
                           int(estimator == "pca"), ids)
         LAUNCHES["bc7_est"] += 1
+        key = config_key(chans, subsets, plist, levels, k, estimator)
+        LAUNCHES_BY_CONFIG[key] = LAUNCHES_BY_CONFIG.get(key, 0) + 1
     return ids
+
+
+def config_key(chans: int, subsets: int, plist, levels: int, k: int,
+               estimator: str = "bounds") -> tuple:
+    """The key of ``LAUNCHES_BY_CONFIG`` for one shortlist configuration:
+    (chans, subsets, number of partitions, levels, k, estimator), with ``k``
+    cut to the number of partitions as the wrapper cuts it."""
+    n = len(tuple(plist))
+    return (int(chans), int(subsets), n, int(levels), min(int(k), n),
+            estimator)

@@ -67,6 +67,14 @@ MODE_FUNCTIONS = {0: "bc7_full_m02", 2: "bc7_full_m02",
                   1: "bc7_full_m1367", 3: "bc7_full_m1367",
                   6: "bc7_full_m1367", 7: "bc7_full_m1367",
                   4: "bc7_full_m45", 5: "bc7_full_m45"}
+# the kernel's launch shape per mode, (lanes per BC7 block, threads per CTA):
+# Shape<M> in csrc/bc7_full_search.cuh (a test holds the two together); and
+# for a budget without refinement (no uber, no shake), Shape<M, 1>: one lane
+# per block in the single-index modes
+LAUNCH_SHAPES = {0: (16, 128), 1: (8, 64), 2: (8, 64), 3: (8, 64),
+                 4: (4, 64), 5: (4, 64), 6: (8, 64), 7: (8, 64)}
+NARROW_SHAPES = {m: LAUNCH_SHAPES[m] if m in (4, 5) else (1, 64)
+                 for m in range(8)}
 
 
 # ------------------------------------------------------------- host side ---

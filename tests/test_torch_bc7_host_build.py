@@ -2,8 +2,11 @@
 
 ``csrc/bc7_est.cuh``, ``csrc/bc7_fast_search.cuh`` and
 ``csrc/bc7_full_search.cuh`` are plain C++ apart from the CUDA keywords (the
-full search's kernel and launcher sit behind ``__CUDACC__``), so ``g++`` builds them against a small stub of
-``cuda_runtime.h`` and a loop over blocks takes the place of the launch. That
+full search's kernel and launcher sit behind ``__CUDACC__``), so ``g++`` builds
+them against a small stub of ``cuda_runtime.h`` and a loop over blocks takes
+the place of the launch. The full search is written as phases of a group of
+lanes over a shared struct; here each phase runs as a loop over the lanes, so
+the host build runs the card's own phase and scan code. That
 puts the arithmetic of the kernels under test where there is no card: the same
 numpy blocks go through the host build and through the plain PyTorch versions,
 and the partition ids, the words and the errors must be equal on every block
@@ -43,6 +46,7 @@ STUB = r"""
 #define __forceinline__ inline
 #define __constant__ static const
 #define __launch_bounds__(x)
+inline int __ffs(int v) { return __builtin_ffs(v); }
 struct float4 { float x, y, z, w; };
 struct uint4 { unsigned x, y, z, w; };
 struct uint2 { unsigned x, y; };
@@ -61,6 +65,8 @@ HARNESS = r"""
 #include "bc7_est.cuh"
 #include "bc7_fast_search.cuh"
 #include "bc7_full_search.cuh"
+
+#include <cstring>
 
 template <int NC>
 static void est_block(const float* x, int subsets, const bc7::PartList& pl,
@@ -90,7 +96,55 @@ extern "C" void host_est(const float* x, long long n, int chans, int subsets,
   }
 }
 
-// the body of the full search's kernel of `mode`, one block after the other
+// With g_orders set, every phase runs twice from the same shared state: its
+// lanes in descending order, then ascending. A phase in which one lane reads
+// or writes what another lane writes in the same phase (a race between the
+// card's lanes, which only the group's barrier orders) leaves two different
+// states; g_races counts those phases.
+static int g_orders = 0;
+static long long g_races = 0;
+
+// block i of the full search's kernel of mode M in shape W: each phase as a
+// loop over the group's lanes
+template <int M, int W>
+static void host_shaped(const float* x, long long i, const int* ids, int nids,
+                        int iters, int shake, int uber, int keep,
+                        const unsigned char* bar, int merge, uint4* w,
+                        float* err) {
+  using Sh = typename bc7::SharedOf<M, W>::type;
+  static Sh sh, before, down;
+  constexpr int L = bc7::Shape<M, W>::LANES;
+  bc7::full_block<M, W>(sh, x, i, ids, nids, iters, shake, uber, keep, bar,
+                        merge, w, err, [](auto&& f) {
+                       if (g_orders) {
+                         std::memcpy(&before, &sh, sizeof(Sh));
+                         for (int lane = L - 1; lane >= 0; --lane) f(lane);
+                         std::memcpy(&down, &sh, sizeof(Sh));
+                         std::memcpy(&sh, &before, sizeof(Sh));
+                       }
+                       for (int lane = 0; lane < L; ++lane) f(lane);
+                       if (g_orders && std::memcmp(&down, &sh, sizeof(Sh)))
+                         ++g_races;
+                     });
+}
+
+// the shape the launcher picks for the budget
+template <int M>
+static void host_block(const float* x, long long i, const int* ids, int nids,
+                       int iters, int shake, int uber, int keep,
+                       const unsigned char* bar, int merge, uint4* w,
+                       float* err) {
+  if constexpr (bc7::Shape<M>::DUAL)
+    host_shaped<M, 0>(x, i, ids, nids, iters, shake, uber, keep, bar, merge,
+                      w, err);
+  else if (bc7::narrow_shape<M>(shake, uber))
+    host_shaped<M, 1>(x, i, ids, nids, iters, shake, uber, keep, bar, merge,
+                      w, err);
+  else
+    host_shaped<M, 0>(x, i, ids, nids, iters, shake, uber, keep, bar, merge,
+                      w, err);
+}
+
 extern "C" void host_full(const float* x, long long n, int mode,
                           const int* ids, int nids, int iters, int shake,
                           int uber, int keep, const unsigned char* bar,
@@ -100,14 +154,68 @@ extern "C" void host_full(const float* x, long long n, int mode,
     switch (mode) {
 #define HOST_FULL(M)                                                       \
   case M:                                                                  \
-    bc7::full_block<M>(x, i, ids, nids, iters, shake, uber, keep, bar,     \
-                       merge, w, err);                                     \
+    host_block<M>(x, i, ids, nids, iters, shake, uber, keep, bar, merge,   \
+                  w, err);                                                 \
     break;
       HOST_FULL(0) HOST_FULL(1) HOST_FULL(2) HOST_FULL(3)
       HOST_FULL(4) HOST_FULL(5) HOST_FULL(6) HOST_FULL(7)
 #undef HOST_FULL
     }
   }
+}
+
+// host_full with every phase run in both lane orders; returns the number of
+// phases whose two orders left different shared states
+extern "C" long long host_full_orders(const float* x, long long n, int mode,
+                                      const int* ids, int nids, int iters,
+                                      int shake, int uber, int keep,
+                                      const unsigned char* bar, int merge,
+                                      unsigned* words, float* err) {
+  g_orders = 1;
+  g_races = 0;
+  host_full(x, n, mode, ids, nids, iters, shake, uber, keep, bar, merge,
+            words, err);
+  g_orders = 0;
+  return g_races;
+}
+
+// the launch shapes of mode M's kernel: lanes per block and threads per CTA
+// for a budget with refinement, then without; then whether the narrow kernel
+// is launched without refinement, and with some
+extern "C" void host_shape(int mode, int* out) {
+  switch (mode) {
+#define HOST_SHAPE(M)                                                  \
+  case M:                                                              \
+    out[0] = bc7::Shape<M>::LANES;                                     \
+    out[1] = bc7::Shape<M>::THREADS;                                   \
+    out[2] = bc7::Shape<M, 1>::LANES;                                  \
+    out[3] = bc7::Shape<M, 1>::THREADS;                                \
+    out[4] = bc7::narrow_shape<M>(0, 0);                               \
+    out[5] = bc7::narrow_shape<M>(1, 0) || bc7::narrow_shape<M>(0, 1); \
+    break;
+    HOST_SHAPE(0) HOST_SHAPE(1) HOST_SHAPE(2) HOST_SHAPE(3)
+    HOST_SHAPE(4) HOST_SHAPE(5) HOST_SHAPE(6) HOST_SHAPE(7)
+#undef HOST_SHAPE
+  }
+}
+
+// the keep-2 scan over errors e[0..n) as the search drives keep2_step:
+// out[0] the best, out[1] the runner-up (-1: none)
+extern "C" void host_keep2(const float* e, int n, int* out) {
+  int b = 0, b2 = -1;
+  for (int k = 1; k < n; ++k) {
+    const int a = bc7::keep2_step(e[k], e[b], b2 >= 0 ? e[b2] : 0.0f, b2 >= 0);
+    if (a & 2) b2 = (a & 1) ? b : k;
+    if (a & 1) b = k;
+  }
+  out[0] = b;
+  out[1] = b2;
+}
+
+// scan_min over e[0..n) against the incumbent `inc`, ok[t] == 0 skipped
+extern "C" int host_scan_min(float inc, const float* e, const int* ok, int n) {
+  return bc7::scan_min(inc, n, [&](int t) { return e[t]; },
+                       [&](int t) { return ok[t] != 0; });
 }
 
 // the body of bc7_fast_kernel, one block after the other
@@ -164,6 +272,14 @@ def host_lib(tmp_path_factory):
     lib.host_full.argtypes = [p, ll, i, p, i, i, i, i, i, p, i, p, p]
     lib.host_est.restype = lib.host_fast.restype = None
     lib.host_full.restype = None
+    lib.host_full_orders.argtypes = lib.host_full.argtypes
+    lib.host_full_orders.restype = ll
+    lib.host_keep2.argtypes = [p, i, p]
+    lib.host_keep2.restype = None
+    lib.host_scan_min.argtypes = [ctypes.c_float, p, p, i]
+    lib.host_scan_min.restype = i
+    lib.host_shape.argtypes = [i, p]
+    lib.host_shape.restype = None
     return lib
 
 
@@ -318,7 +434,9 @@ def _host_search(lib, x):
 
 FULL_BUDGETS = {"q1": dict(quality=1.0),
                 "override": dict(quality=0.25, _plist=(0, 1, 5, 9, 13),
-                                 _topk=2, _shake=1, _uber=1)}
+                                 _topk=2, _shake=1, _uber=1),
+                "q025": dict(quality=0.25),
+                "q025_top3": dict(quality=0.25, _topk=3)}
 
 
 @lru_cache(maxsize=None)
@@ -348,6 +466,67 @@ def test_host_built_full_search_equals_plain_version(host_lib, budget, mode):
     np.testing.assert_array_equal(eh.numpy(), ep.numpy())
 
 
+@pytest.mark.parametrize("mode", range(8))
+def test_full_search_phases_do_not_depend_on_lane_order(host_lib, mode):
+    """Every phase of the top tier's search leaves the same shared state with
+    its lanes run in descending as in ascending order, so no lane reads or
+    writes another lane's data within a phase; the words and errors are the
+    plain version's. Mode 6 runs on the alpha bar, mode 0 with a merge."""
+    x = _full_blocks()
+    xt = torch.from_numpy(x)
+    plan = _full_plan("q1")
+    cfg = plan.shortlists.get(mode)
+    ids = (bc7_est.estimate_topk_plain(xt, **cfg) if isinstance(cfg, dict)
+           else cfg)
+    bar = (bc7_full._combined_alpha_bar(xt, True, True) if mode >= 6
+           else None)
+    kw = dict(iters=plan.iters, shake=plan.shake, uber=plan.uber,
+              keep=plan.keep, bar=bar)
+    if isinstance(ids, torch.Tensor):
+        ids_np = np.ascontiguousarray(ids.numpy(), np.int32)
+        idp, nids = ids_np.ctypes.data, ids_np.shape[1]
+    else:
+        idp, nids = None, ids or 0
+    bar_np = None if bar is None else np.ascontiguousarray(bar.numpy(),
+                                                           np.uint8)
+    n = x.shape[0]
+    merge = mode == 0
+    run = np.random.default_rng(mode).random(n).astype(np.float32) * 4e5
+    words = np.full((n, 4), 7, np.uint32)
+    err = run.copy()
+    races = host_lib.host_full_orders(
+        x.ctypes.data, n, mode, idp, nids, plan.iters, plan.shake, plan.uber,
+        plan.keep, None if bar_np is None else bar_np.ctypes.data, int(merge),
+        words.ctypes.data, err.ctypes.data)
+    assert races == 0, f"{races} phases depend on the order of their lanes"
+    wp, ep = bc7_full.bc7_mode_search_plain(xt, mode, ids, **kw)
+    wp, ep = wp.numpy().view(np.uint32), ep.numpy()
+    if merge:
+        take = ep < run
+        wp = np.where(take[:, None], wp, np.uint32(7))
+        ep = np.where(take, ep, run)
+        assert 0 < take.sum() < n
+    np.testing.assert_array_equal(words, wp)
+    np.testing.assert_array_equal(err, ep)
+
+
+@pytest.mark.parametrize("mode", range(8))
+def test_full_search_launch_shape_is_the_wrappers(host_lib, mode):
+    """The header's Shape<M> (lanes per block, threads per CTA) is what
+    ``bc7_full.LAUNCH_SHAPES`` reports, its narrow shape Shape<M, 1> what
+    ``bc7_full.NARROW_SHAPES`` reports and is launched only without
+    refinement, and a group lies inside one warp."""
+    out = np.zeros(6, np.int32)
+    host_lib.host_shape(mode, out.ctypes.data)
+    lanes, threads, nlanes, nthreads, narrow, narrow_refined = (
+        int(v) for v in out)
+    assert (lanes, threads) == bc7_full.LAUNCH_SHAPES[mode]
+    assert (nlanes, nthreads) == bc7_full.NARROW_SHAPES[mode]
+    assert 32 % lanes == 0 and threads % 32 == 0
+    assert 32 % nlanes == 0 and nthreads % 32 == 0
+    assert narrow == (mode not in (4, 5)) and not narrow_refined
+
+
 def test_host_built_full_entry_equals_plain_version(host_lib):
     """All eight modes merged in the host build's own running best, with the
     mode 6/7 bar, against the plain entry at the top tier."""
@@ -360,3 +539,90 @@ def test_host_built_full_entry_equals_plain_version(host_lib):
     wp, ep = bc7_full.encode_bc7_blocks_plain(xt)
     assert torch.equal(wh, wp)
     np.testing.assert_array_equal(eh.numpy(), ep.numpy())
+
+
+# ----------------------------------------------- the full search's scans ---
+
+def _keep2_model(errs):
+    """The one-thread search's keep-2 loop (best, runner-up)."""
+    best, best2 = 0, None
+    for k in range(1, len(errs)):
+        take = errs[k] < errs[best]
+        loser = best if take else k
+        if take:
+            best = k
+        if best2 is None or errs[loser] < errs[best2]:
+            best2 = loser
+    return best, -1 if best2 is None else best2
+
+
+def _uber_model(entry, errs, ok):
+    """The one-thread uber loop: the entry first, skipped variants, strict <;
+    -1 where the entry stays."""
+    best_e, w = entry, -1
+    for v, (e, o) in enumerate(zip(errs, ok)):
+        if not o:
+            continue
+        if e < best_e:
+            best_e, w = e, v
+    return w
+
+
+def _shake_model(errs):
+    """The one-thread shake loop over steps: the start (step 0) first."""
+    best_e, w = None, 0
+    for j, e in enumerate(errs):
+        if j == 0 or e < best_e:
+            best_e, w = e, j
+    return w
+
+
+def _keep2(lib, errs):
+    e = np.asarray(errs, np.float32)
+    out = np.zeros(2, np.int32)
+    lib.host_keep2(e.ctypes.data, len(e), out.ctypes.data)
+    return tuple(int(v) for v in out)
+
+
+def _scan_min(lib, inc, errs, ok=None):
+    e = np.asarray(errs, np.float32)
+    o = np.ones(len(e), np.int32) if ok is None else np.asarray(ok, np.int32)
+    return lib.host_scan_min(float(inc), e.ctypes.data, o.ctypes.data, len(e))
+
+
+@pytest.mark.parametrize("case", ["keep2", "uber", "shake", "random_ties"])
+def test_full_search_scans_keep_the_sequential_order(host_lib, case):
+    """The scans that pick a phase's winners from the slots, on crafted error
+    arrays with ties, against the one-thread search's sequential loops."""
+    if case == "keep2":
+        # a demoted best replaces the runner-up only on a strict <
+        for errs, want in (([5, 5, 3], (2, 1)), ([3, 5, 5], (0, 1)),
+                           ([5, 3, 3, 4], (1, 2)), ([1, 1, 1], (0, 1)),
+                           ([4, 2, 4, 2], (1, 3)), ([7], (0, -1))):
+            assert _keep2_model(errs) == want
+            assert _keep2(host_lib, errs) == want, errs
+    elif case == "uber":
+        # the entry wins a tie; a skipped variant never wins, even if smaller
+        for entry, errs, ok, want in ((4, [4, 4], None, -1),
+                                      (5, [5, 4, 4, 6], [1, 0, 1, 1], 2),
+                                      (5, [1, 6], [0, 1], -1),
+                                      (5, [6, 3, 3], None, 1)):
+            ok_ = [1] * len(errs) if ok is None else ok
+            assert _uber_model(entry, errs, ok_) == want
+            assert _scan_min(host_lib, entry, errs, ok_) == want
+    elif case == "shake":
+        # the start (step 0) wins ties; among the steps the first does
+        for errs, want in (([2, 2, 1, 1], 2), ([2, 2, 2], 0), ([3, 1, 2, 1], 1)):
+            assert _shake_model(errs) == want
+            assert 1 + _scan_min(host_lib, errs[0], errs[1:]) == want
+    else:
+        rng = np.random.default_rng(23)
+        for _ in range(300):
+            n = int(rng.integers(1, 12))
+            errs = rng.integers(0, 4, n).astype(np.float32).tolist()
+            ok = rng.integers(0, 2, n).tolist()
+            assert _keep2(host_lib, errs) == _keep2_model(errs), errs
+            assert (_scan_min(host_lib, 2.0, errs, ok)
+                    == _uber_model(2.0, errs, ok)), (errs, ok)
+            assert 1 + _scan_min(host_lib, errs[0], errs[1:]) == \
+                _shake_model(errs), errs

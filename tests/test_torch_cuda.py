@@ -86,6 +86,25 @@ EST_CASES = {
 }
 
 
+def test_shortlist_launches_are_counted_by_configuration():
+    """The full BC7 entry's three shortlists each count one launch under
+    their own configuration, and the reset empties the table."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.from_numpy(_blocks(256)).cuda()
+    plan = bc7_full._plan(1.0, 0xFF, 1.0, None, None, None, None)
+    cfgs = {bc7_est.config_key(**c): c for c in plan.shortlists.values()
+            if isinstance(c, dict)}
+    assert len(cfgs) == 3
+    kernels.reset_launch_counts()
+    for c in cfgs.values():
+        bc7_est.estimate_topk(x, **c)
+    assert bc7_est.LAUNCHES_BY_CONFIG == {key: 1 for key in cfgs}
+    assert kernels.launch_counts()["bc7_est"] == 3
+    kernels.reset_launch_counts()
+    assert bc7_est.LAUNCHES_BY_CONFIG == {}
+
+
 @pytest.mark.parametrize("name", list(EST_CASES))
 def test_shortlist_kernel_equals_plain_version(name):
     if not torch.cuda.is_available():
@@ -133,6 +152,8 @@ FULL_CASES = {
                              alpha_restrict=False),
     "q025_override": dict(quality=0.25, _plist=(0, 1, 5), _topk=2, _shake=1,
                           _uber=1),
+    "q025": dict(quality=0.25),
+    "q025_top3": dict(quality=0.25, _topk=3),
     **{f"q1_mode{m}": dict(mode_mask=1 << m) for m in range(8)},
 }
 
@@ -153,6 +174,50 @@ def test_full_bc7_kernel_equals_plain_version(name):
     assert (wk == wp).all(dim=1).double().mean().item() >= 0.99
     torch.testing.assert_close(ek, ep, rtol=1e-5, atol=1e-3)
 
+
+
+@pytest.mark.parametrize("n", [1, 3, 4097])
+def test_full_bc7_kernel_at_block_counts_that_do_not_fill_a_cta(n):
+    """K5 encodes 8 or 16 blocks per CTA (``bc7_full.LAUNCH_SHAPES``): grids
+    whose last CTA is partly empty."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.from_numpy(_blocks(max(n, 128), seed=n)[:n].copy()).cuda()
+    x[::2, :, 3] = 1.0
+    wk, ek = bc7_full.encode_bc7_blocks(x)
+    wp, ep = bc7_full.encode_bc7_blocks_plain(x)
+    assert torch.equal(wk, wp)
+    assert torch.equal(ek, ep)
+
+
+@pytest.mark.parametrize("first,second", [(1, 5), (0, 7), (4, 2)])
+def test_full_bc7_mode_search_merges_into_another_modes_pair(first, second):
+    """``out``: one mode's search merged into the running pair of another,
+    on strict <, as the plain version merges it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.from_numpy(_blocks(1000, seed=11)).cuda()
+    x[::3, :, 3] = 1.0
+    plan = bc7_full._plan(1.0, 0xFF, 1.0, None, None, None, None)
+    bar = bc7_full._combined_alpha_bar(x, True, True)
+
+    def kw(mode):
+        cfg = plan.shortlists.get(mode)
+        ids = (bc7_est.estimate_topk_plain(x, **cfg) if isinstance(cfg, dict)
+               else cfg)
+        return dict(ids=ids, iters=plan.iters, shake=plan.shake,
+                    uber=plan.uber, keep=plan.keep,
+                    bar=bar if mode >= 6 else None)
+
+    w0, e0 = bc7_full.bc7_mode_search_plain(x, first, **kw(first))
+    got = (w0.clone(), e0.clone())
+    want = (w0.clone(), e0.clone())
+    bc7_full.bc7_mode_search(x, second, **kw(second), out=got)
+    bc7_full.bc7_mode_search_plain(x, second, **kw(second), out=want)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert not torch.equal(got[0], w0)          # the merge took some blocks
 
 def _hdr_blocks(n=1024, seed=5, signed=False):
     """(n,16,3) float32 HDR blocks: smooth exponent fields with

@@ -125,6 +125,25 @@ def test_cpu_wrappers_never_touch_the_build_module():
         "bc7_fast": 0, "bc7_full": 0, "bc6h": 0}
 
 
+def test_shortlist_counts_by_configuration_only_on_a_launch():
+    """A shortlist on a CPU tensor adds nothing to the per-configuration
+    counts; the key cuts ``k`` to the partitions, as the wrapper does."""
+    import numpy as np
+    from gfx_imagecompress_tpu_torch import kernels
+    from gfx_imagecompress_tpu_torch.kernels import bc7_est
+    kernels.reset_launch_counts()
+    x = torch.from_numpy(
+        np.random.default_rng(2).random((4, 16, 4), dtype=np.float32))
+    ids = bc7_est.estimate_topk(x, chans=3, subsets=2, plist=(0, 3, 7),
+                                levels=8, k=5)
+    assert ids.shape == (4, 3)
+    assert bc7_est.LAUNCHES_BY_CONFIG == {}
+    assert bc7_est.config_key(3, 2, (0, 3, 7), 8, 5) == (3, 2, 3, 8, 3,
+                                                          "bounds")
+    assert bc7_est.config_key(4, 2, range(64), 4, 8, "pca") == (
+        4, 2, 64, 4, 8, "pca")
+
+
 def test_build_module_names_sources_that_exist():
     from gfx_imagecompress_tpu_torch.kernels import _build
     assert _build.CSRC == PKG / "csrc"
