@@ -204,6 +204,24 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps):
+    """Mean time of ``fn`` in ms over ``reps`` calls, CUDA events, the calls
+    queued behind a device-side sleep of about 20 ms so that they run back
+    to back on the card: for launches shorter than the host takes to issue
+    them. One warm-up call first."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def launch_ms(before, launch, reps):
     """Mean time in ms of ``launch()`` alone, CUDA events around it, over
     ``reps`` iterations of ``before()`` then ``launch()``, after one
@@ -903,6 +921,17 @@ def main() -> int:
     for label, cfg in est_cfgs:
         rows.append(compare_est(label, bc7_est, mixed7, cfg,
                                 reps=1 if args.quick else 3))
+    # mode 7's shortlist with the full BC7 entry's mode 6/7 bar: barred
+    # blocks get the list's first k ids, the others their ranking
+    bar7 = bc7_full._combined_alpha_bar(mixed7, True, True)
+    barred = bar7.double().mean().item()
+    check(0.0 < barred < 1.0, f"bc7_est[barred]: barred share {barred} of "
+          "the mixed blocks is not strictly between 0 and 1")
+    rows.append(dict(compare_est(
+        "rgba_2sub_64_k8_pca_barred", bc7_est, mixed7,
+        dict(chans=4, subsets=2, plist=tuple(range(64)), levels=4, k=8,
+             estimator="pca", bar=bar7), reps=1 if args.quick else 3),
+        barred_frac=barred))
     emit({"phase": "kernel_budgets", "device": smi, "quick": args.quick,
           "budgets": rows})
 
@@ -1273,7 +1302,7 @@ def main() -> int:
         pre = {key: bc7_est.estimate_topk(x, **cfg)
                for key, cfg in cfgs.items()}
 
-        def given(blocks, **cfg):
+        def given(blocks, bar=None, **cfg):
             return pre[tuple(sorted(cfg.items()))]
 
         def searches(fn):
@@ -1340,12 +1369,50 @@ def main() -> int:
                 chans=cfg["chans"], subsets=cfg["subsets"],
                 nparts=len(cfg["plist"]), k=cfg["k"],
                 pca=cfg.get("estimator") == "pca"),
-                bytes_pb=256 + 4 * cfg["k"], config=label)
+                bytes_pb=256 + 4 * cfg["k"], config=label, **est_shape)
             row["launches"] = full_est_by_config.get(
                 bc7_est.config_key(**cfg), 0)
             check(row["launches"] > 0,
                   f"main path never launched the {label} shortlist")
             out.append(row)
+        # mode 7's shortlist as the path runs it, with the mode 6/7 bar: on
+        # the photo (every block barred) and on the alpha-field image
+        # (partly barred). Operations and bytes are those of this run's
+        # data: a barred block reads its bar byte and writes k ids.
+        cfg = plan.shortlists[7]
+        key = bc7_est.config_key(**cfg)
+        label = "full_4ch_2sub_l4_k8_pca_barred"
+        # A barred launch is shorter than the host takes to issue it: its
+        # time is taken with the launches queued (queued_ms); the time of
+        # the wrapper called back to back stays beside it.
+        sides = {}
+        for side, xx in (("photo", x),
+                         ("alpha", shape_inputs[f"bc7_full_alpha_{side7}"])):
+            bar = bc7_full._combined_alpha_bar(xx, True, True)
+            free = 1.0 - bar.double().mean().item()
+            r = compare_est(f"{label}_{side}", bc7_est, xx,
+                            dict(cfg, bar=bar), reps)
+            r["wrapper_ms"] = r["kernel_ms"]
+            r["kernel_ms"] = queued_ms(lambda: bc7_est.estimate_topk(
+                xx, **cfg, bar=bar), reps)
+            sides[side] = (xx, free, r)
+        xx, free, r = sides["photo"]
+        xa, free_a, ra = sides["alpha"]
+        ops = ops_bc7_est(chans=4, subsets=2, nparts=len(cfg["plist"]),
+                          k=cfg["k"], pca=True)
+        row = kernel_row("bc7_est", r, xx, free * ops,
+                         bytes_pb=1 + 4 * cfg["k"] + free * 256,
+                         config=label, barred_frac=1.0 - free,
+                         wrapper_ms=r["wrapper_ms"],
+                         alpha_image_ms=ra["kernel_ms"],
+                         alpha_image_plain_ms=ra["plain_ms"],
+                         alpha_image_barred_frac=1.0 - free_a,
+                         alpha_image_identical_frac=ra["identical_frac"],
+                         alpha_image_bound_ms=bound(
+                             xa.shape[0], 1 + 4 * cfg["k"] + free_a * 256,
+                             free_a * ops)[0], **est_shape)
+        row["launches"] = full_est_by_config.get(key, 0)
+        out.append(row)
         return out
 
     def bc6h_kernel_row(reps):
@@ -1404,6 +1471,11 @@ def main() -> int:
             signed_blocks_per_mode=rs["blocks_per_mode"],
             around_plain=around, resources=regs)
 
+    # K3's launch shape and resources, beside each of its rows
+    est_shape = dict(lanes_per_block=bc7_est.EST_LANES,
+                     threads_per_cta=bc7_est.EST_THREADS,
+                     resources=[k for k in resources
+                                if k["lib"] == "bc7_est"])
     final = []
     for name, (wrapper, plain) in wrappers.items():
         if name == "bc6h":
@@ -1419,7 +1491,7 @@ def main() -> int:
                        k=4)
             final.append(kernel_row(
                 "bc7_est", compare_est("main_shape", bc7_est, x, cfg, reps),
-                x, ops_bc7_est()))
+                x, ops_bc7_est(), **est_shape))
             ids = bc7_est.estimate_topk(x, **cfg)
 
             def wrapper(x, ids=ids):
@@ -1434,7 +1506,20 @@ def main() -> int:
             continue
         r = compare(name, "main_shape", wrapper, plain, x, {}, decode,
                     reps=reps, exact_cols=exact.get(name, ()))
-        final.append(kernel_row(name, r, x, ops_per_block(name, x)))
+        more = {}
+        if name == "bc1":
+            # K1a: two lanes per block and colour mode, the two modes in
+            # different warps (bc1.BC1_LANES, bc1.BC1_CTA_BLOCKS); with b3d
+            # the cube on a whole warp (bc1.BC1_CUBE_LANES)
+            more = dict(lanes_per_block_and_mode=bc1.BC1_LANES,
+                        cube_lanes_per_block_and_mode=bc1.BC1_CUBE_LANES,
+                        lanes_per_block=2 * bc1.BC1_LANES,
+                        blocks_per_cta=bc1.BC1_CTA_BLOCKS,
+                        threads_per_cta=2 * bc1.BC1_CTA_BLOCKS
+                        * bc1.BC1_LANES,
+                        resources=[k for k in resources
+                                   if k["lib"] == "bc1"])
+        final.append(kernel_row(name, r, x, ops_per_block(name, x), **more))
 
     if args.out:
         import os

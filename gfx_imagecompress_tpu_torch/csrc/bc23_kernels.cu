@@ -16,16 +16,15 @@ namespace {
 __device__ __forceinline__ void colour_half(const float (&rgba)[4][16],
                                             const bcx::Bc1Budget& bud, uint32_t& cw0,
                                             uint32_t& cw1, float& cerr) {
-  float xs[3][16], m[16];
+  float xs[3][16];
 #pragma unroll
   for (int p = 0; p < 16; ++p) {
     xs[0][p] = rgba[0][p];
     xs[1][p] = rgba[1][p];
     xs[2][p] = rgba[2][p];
-    m[p] = 1.0f;
   }
   uint32_t a0, a1, pidx;
-  bcx::bc1_search<false>(xs, m, bud, a0, a1, pidx, cerr);
+  bcx::bc1_search(xs, bud, a0, a1, pidx, cerr);
   cw0 = a0 | (a1 << 16);
   cw1 = pidx;
 }

@@ -1,7 +1,8 @@
 // Shared by the kernel sources: launch shape, pixel loads, argument check.
 //
-// In the kernels that launch with THREADS and block_index (all but the full
-// BC7 search, where 16 lanes share a block: bc7_full_search.cuh), one thread
+// In the kernels that launch with THREADS and block_index (all but K1a,
+// the BC7 shortlist and the full BC7 search, where a group of lanes shares a
+// block: bc1_search.cuh, bc7_est.cuh, bc7_full_search.cuh), one thread
 // encodes one 4x4 block; 128 threads per CTA. A thread reads its
 // 16 pixels straight from the (N,16,C) tensor image_to_blocks() produced -
 // 16-byte loads for RGBA - rather than from a channel-major transpose: the

@@ -70,7 +70,8 @@ FUNCTIONS = {
     "bc2_encode": ("bc23", (_P, _L, _P, _P, _F, _F, _F, _I, _I, _I)),
     "bc4_encode": ("bc45", (_P, _L, _P, _P, _I, _I, _I)),
     "bc5_encode": ("bc45", (_P, _L, _I, _P, _P, _I, _I, _I)),
-    "bc7_est_topk": ("bc7_est", (_P, _L, _I, _I, _P, _I, _I, _I, _I, _P)),
+    "bc7_est_topk": ("bc7_est", (_P, _L, _I, _I, _P, _P, _I, _I, _I, _I,
+                                   _P, _P)),
     "bc7_fast_encode": ("bc7_fast", (_P, _L, _P, _I, _I, _I, _P, _P)),
     **{fn: (fn, (_P, _L, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P))
        for fn in ("bc7_full_m02", "bc7_full_m1367", "bc7_full_m45")},

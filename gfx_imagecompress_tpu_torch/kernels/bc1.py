@@ -3,9 +3,10 @@
 ``encode_bc1_blocks``, ``encode_bc2_blocks`` and ``encode_bc3_blocks`` are the
 wrappers the API calls. For a CUDA tensor they launch the hand-written kernels
 (``csrc/bc1_kernel.cu``, ``csrc/bc23_kernels.cu``; the colour search is
-``csrc/bc1_search.cuh``, the alpha search ``csrc/bc4_search.cuh``) and count
-the launch in ``LAUNCHES``; for a CPU tensor they run the plain versions
-below. Nothing falls back from one to the other.
+``csrc/bc1_search.cuh``: for BC1 a group of lanes per block and colour mode,
+for BC2/BC3 one thread per block; the alpha search ``csrc/bc4_search.cuh``)
+and count the launch in ``LAUNCHES``; for a CPU tensor they run the plain
+versions below. Nothing falls back from one to the other.
 
 The plain versions mirror the JAX package's Pallas bodies
 (``kernels/bc1_pallas.py``: ``_bc1_search``, ``_bc1_kernel``, ``_bc2_kernel``,
@@ -31,6 +32,7 @@ import torch
 from ..options import PERCEPTUAL_WEIGHTS
 from .bc4 import (F32, I32, I64, _bc4_search, _check_blocks, _max16, _min16,
                   _pack_dxt5, _sum16, wrap_u32)
+from .bc7_est import sqrt32
 
 LEVELS4 = (0.0, 1.0 / 3.0, 2.0 / 3.0, 1.0)
 LEVELS3 = (0.0, 0.5, 1.0)
@@ -41,6 +43,16 @@ TB_EPS = 0.05
 
 # launches of each CUDA kernel made by the wrappers below
 LAUNCHES = {"bc1": 0, "bc2": 0, "bc3": 0}
+
+# K1a's launch shape (csrc/bc1_search.cuh, csrc/bc1_kernel.cu): lanes per
+# block and colour mode, and blocks per CTA; a CTA runs both modes of its
+# blocks (2 * 32 * 2 threads), or the 4-colour mode alone without
+# allow_three (32 * 2). With b3d the cube of a (block, mode) runs on a whole
+# warp (BC1_CUBE_LANES lanes), the warp's blocks one after the other. K1b
+# and K1c are one thread per block.
+BC1_LANES = 2
+BC1_CTA_BLOCKS = 32
+BC1_CUBE_LANES = 32
 
 
 def _mean16(x):
@@ -130,7 +142,9 @@ def _tb_take(werr, uerr, best_w, best_u):
 
 def _pca(xs, m=None):
     """PCA axis. xs: 3x(16,N) f32 -> (mean, axis, cen) of (1,N) triples.
-    The power iteration starts from ones, as in the JAX package."""
+    The power iteration starts from ones, as in the JAX package; its roots
+    are correctly rounded on every device (``sqrt32``), as the kernel's
+    ``sqrtf`` is."""
     if m is None:
         mean = [_mean16(x) for x in xs]
         cen = [x - mn for x, mn in zip(xs, mean)]
@@ -147,11 +161,11 @@ def _pca(xs, m=None):
         nv = [cov[(0, 0)] * v[0] + cov[(0, 1)] * v[1] + cov[(0, 2)] * v[2],
               cov[(0, 1)] * v[0] + cov[(1, 1)] * v[1] + cov[(1, 2)] * v[2],
               cov[(0, 2)] * v[0] + cov[(1, 2)] * v[1] + cov[(2, 2)] * v[2]]
-        n = torch.sqrt(nv[0] * nv[0] + nv[1] * nv[1] + nv[2] * nv[2])
+        n = sqrt32(nv[0] * nv[0] + nv[1] * nv[1] + nv[2] * nv[2])
         ok = n > _EPS
         inv = 1.0 / torch.clamp(n, min=_EPS)
         v = [torch.where(ok, a * inv, b) for a, b in zip(nv, v)]
-    n = torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+    n = sqrt32(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
     ok = n > _EPS
     inv = 1.0 / torch.clamp(n, min=_EPS)
     axis = [torch.where(ok, a * inv, 0.57735026) for a in v]

@@ -7,8 +7,14 @@ estimate of the error a two- or three-subset fit would leave, and returns the
 multi-subset modes (3 subsets; 4 channels with the PCA axis for mode 7).
 
 For a CUDA tensor the wrapper launches ``csrc/bc7_est_kernel.cu`` (search in
-``csrc/bc7_est.cuh``) and counts the launch in ``LAUNCHES``; for a CPU tensor
-it runs the plain version below. Nothing falls back from one to the other.
+``csrc/bc7_est.cuh``: 8 lanes per block, the partitions dealt to them) and
+counts the launch in ``LAUNCHES``; for a CPU tensor it runs the plain version
+below. Nothing falls back from one to the other.
+
+``bar`` (an (N,) bool tensor, optional) marks blocks whose caller needs no
+shortlist: both the kernel and the plain version give such a block the first
+``k`` ids of ``plist`` without ranking it (what an all-equal ranking gives).
+The full BC7 encoder passes mode 7's restriction bar there.
 
 The plain version mirrors the JAX package's Pallas body
 (``kernels/bc7_full_pallas.py``: ``_estimate``, ``_estimate_pca``, ``_topk``,
@@ -23,6 +29,7 @@ distance to the axis plus the squared quantisation error.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -36,6 +43,8 @@ LAUNCHES_BY_CONFIG: dict = {}
 
 MAX_K = 16                # most ids the CUDA kernel returns (its largest
                           # running-best slot count)
+EST_LANES = 8             # the kernel's lanes per block and threads per CTA
+EST_THREADS = 128         # (csrc/bc7_est.cuh)
 _BIG = 3.4e38
 
 
@@ -116,11 +125,22 @@ def _subset_estimate(x, rows, levels: int, pca: bool, est):
 
 def estimate_topk_plain(blocks: torch.Tensor, *, chans: int, subsets: int,
                         plist, levels: int, k: int,
-                        estimator: str = "bounds") -> torch.Tensor:
+                        estimator: str = "bounds",
+                        bar=None) -> torch.Tensor:
     """(N,16,C>=chans) float blocks in [0,1] -> (N, min(k, len(plist)))
-    int32 partition ids, best first. Runs on the device of ``blocks``."""
+    int32 partition ids, best first; a block with ``bar`` set gets
+    ``plist[:k]``. Runs on the device of ``blocks``."""
     plist = tuple(int(p) for p in plist)
     k = min(k, len(plist))
+    if bar is not None:
+        ids = torch.tensor(plist[:k], dtype=I32, device=blocks.device).repeat(
+            blocks.shape[0], 1)
+        keep = ~bar
+        if keep.any():
+            ids[keep] = estimate_topk_plain(
+                blocks[keep], chans=chans, subsets=subsets, plist=plist,
+                levels=levels, k=k, estimator=estimator)
+        return ids
     x = blocks[..., :chans].to(F32).permute(2, 1, 0) * 255.0      # (C,16,N)
     table = P2 if subsets == 2 else P3
     ests = []
@@ -148,7 +168,12 @@ def estimate_topk_plain(blocks: torch.Tensor, *, chans: int, subsets: int,
     return torch.stack(ids, dim=1)
 
 
-def _check(blocks, chans, subsets, plist, levels, k, estimator):
+def _check(blocks, chans, subsets, plist, levels, k, estimator, bar):
+    if bar is not None and (bar.shape != blocks.shape[:1]
+                            or bar.dtype != torch.bool
+                            or bar.device != blocks.device):
+        raise ValueError(f"estimate_topk: bar is an ({blocks.shape[0]},) "
+                         f"bool tensor on {blocks.device}")
     if blocks.ndim != 3 or blocks.shape[1] != 16 or blocks.shape[2] < chans:
         raise ValueError(f"estimate_topk: expected (N,16,C>={chans}), got "
                          f"{tuple(blocks.shape)}")
@@ -166,21 +191,23 @@ def _check(blocks, chans, subsets, plist, levels, k, estimator):
 
 
 def estimate_topk(blocks: torch.Tensor, *, chans: int, subsets: int, plist,
-                  levels: int, k: int,
-                  estimator: str = "bounds") -> torch.Tensor:
+                  levels: int, k: int, estimator: str = "bounds",
+                  bar=None) -> torch.Tensor:
     """(N,16,4) float32 blocks in [0,1] -> (N, min(k, len(plist))) int32
     partition ids of ``plist`` with the smallest estimates, best first; of
-    equal estimates the one earlier in ``plist`` ranks first.
+    equal estimates the one earlier in ``plist`` ranks first. A block with
+    ``bar`` ((N,) bool, on the blocks' device) set is not ranked: it gets
+    ``plist[:k]``.
 
     The CUDA kernel returns at most ``MAX_K`` (16) ids, which covers every
     ``k`` the encoders ask for (the full BC7 encoder's largest is 9, at quality
     above 0.75 with performance below 1); a larger ``k`` on a CUDA tensor
     raises ``ValueError``. The plain version on a CPU tensor takes any ``k``."""
-    _check(blocks, chans, subsets, plist, levels, k, estimator)
+    _check(blocks, chans, subsets, plist, levels, k, estimator, bar)
     if blocks.device.type == "cpu":
         return estimate_topk_plain(blocks, chans=chans, subsets=subsets,
                                    plist=plist, levels=levels, k=k,
-                                   estimator=estimator)
+                                   estimator=estimator, bar=bar)
     if blocks.dtype != F32 or blocks.shape[2] != 4 or (
             not blocks.is_contiguous()):
         raise ValueError("estimate_topk: the CUDA kernel takes a contiguous "
@@ -196,14 +223,31 @@ def estimate_topk(blocks: torch.Tensor, *, chans: int, subsets: int, plist,
     ids = torch.empty((n, k), dtype=I32, device=blocks.device)
     if n:
         plist_c = (ctypes.c_int * len(plist))(*plist)
+        deal_c = (ctypes.c_int * len(plist))(*deal_order(plist, subsets))
         with torch.cuda.device(blocks.device):
             _build.launch("bc7_est_topk", blocks, n, int(chans), int(subsets),
-                          plist_c, len(plist), int(levels), int(k),
-                          int(estimator == "pca"), ids)
+                          plist_c, deal_c, len(plist), int(levels), int(k),
+                          int(estimator == "pca"), bar, ids)
         LAUNCHES["bc7_est"] += 1
         key = config_key(chans, subsets, plist, levels, k, estimator)
         LAUNCHES_BY_CONFIG[key] = LAUNCHES_BY_CONFIG.get(key, 0) + 1
     return ids
+
+
+@functools.lru_cache(maxsize=64)
+def deal_order(plist: tuple, subsets: int) -> tuple:
+    """The positions of ``plist`` in the order the CUDA kernel deals them to
+    its lanes: sorted by the sizes of the partition's subsets (ties in list
+    order). A lane loops over a subset's pixels, and the lanes of a warp
+    take consecutive deal steps, so neighbouring lanes then loop about as
+    long. The ids do not depend on the order (ties rank by list position)."""
+    table = P2 if subsets == 2 else P3
+
+    def sizes(j):
+        rows = subset_rows(table[int(plist[j])], subsets)
+        return tuple(rows.count(s) for s in range(subsets))
+
+    return tuple(sorted(range(len(plist)), key=sizes))
 
 
 def config_key(chans: int, subsets: int, plist, levels: int, k: int,

@@ -708,18 +708,19 @@ def _encode(blocks, plan, bar, estimate, search):
     maskable = any(m < 6 for m in plan.modes)
     out = None
     for mode in plan.modes:
+        # modes 6/7 are masked only where a mode 0-5 runs before them, so a
+        # masked block always holds that mode's finite error; mode 7's
+        # shortlist skips the masked blocks, whose ids the search never reads
+        mbar = bar if mode >= 6 and maskable else None
         cfg = plan.shortlists.get(mode)
         ids = cfg
         if isinstance(cfg, dict):
-            key = tuple(sorted(cfg.items()))
+            key = (tuple(sorted(cfg.items())), mbar is not None)
             if key not in shared:
-                shared[key] = estimate(blocks, **cfg)
+                shared[key] = estimate(blocks, **cfg, bar=mbar)
             ids = shared[key]
-        # modes 6/7 are masked only where a mode 0-5 runs before them, so a
-        # masked block always holds that mode's finite error
         out = search(blocks, mode, ids, iters=plan.iters, shake=plan.shake,
-                     uber=plan.uber, keep=plan.keep,
-                     bar=bar if mode >= 6 and maskable else None, out=out)
+                     uber=plan.uber, keep=plan.keep, bar=mbar, out=out)
     return out
 
 

@@ -145,3 +145,31 @@ def test_div_scalar_is_a_true_division():
     for d in (3.0, 7.0, 12.0, 14.0):
         np.testing.assert_array_equal(bc7_est.div_scalar(x, d).numpy(),
                                       x.numpy() / np.float32(d))
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_barred_blocks_get_the_lists_first_ids(name):
+    """A barred block is not ranked: it gets the list's first k ids; every
+    other block gets the ids it gets without a bar."""
+    cfg = CONFIGS[name]
+    b = torch.from_numpy(_blocks())
+    bar = torch.zeros(b.shape[0], dtype=torch.bool)
+    bar[::3] = True
+    bar[-5:] = True
+    free = bc7_est.estimate_topk(b, **cfg)
+    got = bc7_est.estimate_topk(b, **cfg, bar=bar)
+    first = torch.tensor(cfg["plist"][:cfg["k"]], dtype=torch.int32)
+    assert (got[bar] == first).all()
+    assert torch.equal(got[~bar], free[~bar])
+    assert (free[bar] != first).any(dim=1).any()
+    every = torch.ones_like(bar)
+    assert (bc7_est.estimate_topk_plain(b, **cfg, bar=every) == first).all()
+
+
+@pytest.mark.parametrize("bad", [torch.zeros(3, dtype=torch.bool),
+                                 torch.zeros(64, dtype=torch.uint8)],
+                         ids=["length", "dtype"])
+def test_wrapper_rejects_a_wrong_bar(bad):
+    b = torch.from_numpy(_blocks())
+    with pytest.raises(ValueError):
+        bc7_est.estimate_topk(b, **CONFIGS["rgb_2sub_bounds"], bar=bad)

@@ -234,6 +234,26 @@ def test_barred_blocks_never_take_modes_6_or_7():
     assert not ((modes[bar] == 6) | (modes[bar] == 7)).any()
 
 
+@pytest.mark.parametrize("quality", [1.0, 0.25])
+def test_bar_on_mode_7s_shortlist_changes_no_word(quality):
+    """The entry passes the mode 6/7 bar to mode 7's shortlist, which then
+    skips the barred blocks; the words and errors are those of ranking every
+    block, on blocks that are partly barred."""
+    b, w, e = _plain(quality, 0xFF)
+    x = torch.from_numpy(b)
+    bar = bc7_full._combined_alpha_bar(x, True, True)
+    assert bar.any() and not bar.all()
+    plan = bc7_full._plan(quality, 0xFF, 1.0, None, None, None, None)
+
+    def every_block(blocks, bar=None, **cfg):
+        return bc7_full.estimate_topk_plain(blocks, **cfg)
+
+    w0, e0 = bc7_full._encode(x, plan, bar, every_block,
+                              bc7_full.bc7_mode_search_plain)
+    assert torch.equal(w, w0)
+    np.testing.assert_array_equal(e.numpy(), e0.numpy())
+
+
 def test_modes_6_7_alone_are_not_barred():
     """With no mode 0-5 enabled nothing masks modes 6/7 (the JAX entry's
     ``maskable``): every block takes one of them."""

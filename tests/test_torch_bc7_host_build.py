@@ -48,6 +48,9 @@ STUB = r"""
 #define __launch_bounds__(x)
 inline int __ffs(int v) { return __builtin_ffs(v); }
 struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
 struct uint4 { unsigned x, y, z, w; };
 struct uint2 { unsigned x, y; };
 struct dim3s { unsigned x; };
@@ -59,6 +62,7 @@ enum { cudaErrorInvalidValue = 1, cudaErrorMisalignedAddress = 716 };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return uint4{a, b, c, d};
 }
+inline uint2 make_uint2(unsigned a, unsigned b) { return uint2{a, b}; }
 """
 
 HARNESS = r"""
@@ -68,34 +72,6 @@ HARNESS = r"""
 
 #include <cstring>
 
-template <int NC>
-static void est_block(const float* x, int subsets, const bc7::PartList& pl,
-                      int levels, int k, int pca, int* ids) {
-  float xs[NC][16];
-  bcx::load_block<NC>(x, 4, xs);
-  const int slots = bc7::slots_for(k);
-  if (slots == 4)
-    bc7::estimate_topk<NC, 4>(xs, subsets, pl, levels, k, pca != 0, ids);
-  else if (slots == 9)
-    bc7::estimate_topk<NC, 9>(xs, subsets, pl, levels, k, pca != 0, ids);
-  else
-    bc7::estimate_topk<NC, 16>(xs, subsets, pl, levels, k, pca != 0, ids);
-}
-
-extern "C" void host_est(const float* x, long long n, int chans, int subsets,
-                         const int* plist, int nplist, int levels, int k,
-                         int pca, int* ids) {
-  bc7::PartList pl;
-  pl.n = nplist;
-  for (int j = 0; j < 64; ++j) pl.id[j] = j < nplist ? plist[j] : 0;
-  for (long long i = 0; i < n; ++i) {
-    if (chans == 3)
-      est_block<3>(x + i * 64, subsets, pl, levels, k, pca, ids + i * k);
-    else
-      est_block<4>(x + i * 64, subsets, pl, levels, k, pca, ids + i * k);
-  }
-}
-
 // With g_orders set, every phase runs twice from the same shared state: its
 // lanes in descending order, then ascending. A phase in which one lane reads
 // or writes what another lane writes in the same phase (a race between the
@@ -103,6 +79,83 @@ extern "C" void host_est(const float* x, long long n, int chans, int subsets,
 // states; g_races counts those phases.
 static int g_orders = 0;
 static long long g_races = 0;
+
+// block i of the shortlist's kernel: each phase as a loop over the group's
+// lanes (both orders with g_orders; the ids written count as state)
+template <int NC, int K, int S>
+static void est_shaped(const float* x, bool barred, const bc7::PartList& pl,
+                       int levels, int k, int pca, int* ids) {
+  using Sh = bc7::EstShared<K>;
+  static Sh sh, before, down;
+  static int ids_before[bc7::MAX_K], ids_down[bc7::MAX_K];
+  constexpr int L = bc7::EST_LANES;
+  bc7::est_block<NC, K, S>(sh, x, barred, pl, levels, k, pca != 0, ids,
+                           [&](auto&& f) {
+    if (g_orders) {
+      std::memcpy(&before, &sh, sizeof(Sh));
+      std::memcpy(ids_before, ids, k * sizeof(int));
+      for (int lane = L - 1; lane >= 0; --lane) f(lane);
+      std::memcpy(&down, &sh, sizeof(Sh));
+      std::memcpy(ids_down, ids, k * sizeof(int));
+      std::memcpy(&sh, &before, sizeof(Sh));
+      std::memcpy(ids, ids_before, k * sizeof(int));
+    }
+    for (int lane = 0; lane < L; ++lane) f(lane);
+    if (g_orders && (std::memcmp(&down, &sh, sizeof(Sh)) ||
+                     std::memcmp(ids_down, ids, k * sizeof(int))))
+      ++g_races;
+  });
+}
+
+template <int NC, int S>
+static void est_one(const float* x, bool barred, const bc7::PartList& pl,
+                    int levels, int k, int pca, int* ids) {
+  const int slots = bc7::slots_for(k);
+  if (slots == 4)
+    est_shaped<NC, 4, S>(x, barred, pl, levels, k, pca, ids);
+  else if (slots == 9)
+    est_shaped<NC, 9, S>(x, barred, pl, levels, k, pca, ids);
+  else
+    est_shaped<NC, 16, S>(x, barred, pl, levels, k, pca, ids);
+}
+
+// the shortlist's launch shape: lanes per block, threads per CTA
+extern "C" void host_est_shape(int* out) {
+  out[0] = bc7::EST_LANES;
+  out[1] = bc7::EST_THREADS;
+}
+
+// bc7_est_topk's contract; with `orders`, every phase in both lane orders.
+// Returns the number of phases whose two orders left different states.
+extern "C" long long host_est(const float* x, long long n, int chans,
+                              int subsets, const int* plist, const int* deal,
+                              int nplist, int levels, int k, int pca,
+                              const unsigned char* bar, int orders,
+                              int* ids) {
+  bc7::PartList pl;
+  pl.n = nplist;
+  for (int j = 0; j < 64; ++j) {
+    pl.id[j] = j < nplist ? plist[j] : 0;
+    pl.deal[j] = j < nplist ? deal[j] : 0;
+  }
+  g_orders = orders;
+  g_races = 0;
+  for (long long i = 0; i < n; ++i) {
+    const bool barred = bar != nullptr && bar[i];
+    const float* xi = x + i * 64;
+    int* out = ids + i * k;
+    if (chans == 3 && subsets == 2)
+      est_one<3, 2>(xi, barred, pl, levels, k, pca, out);
+    else if (chans == 3)
+      est_one<3, 3>(xi, barred, pl, levels, k, pca, out);
+    else if (subsets == 2)
+      est_one<4, 2>(xi, barred, pl, levels, k, pca, out);
+    else
+      est_one<4, 3>(xi, barred, pl, levels, k, pca, out);
+  }
+  g_orders = 0;
+  return g_races;
+}
 
 // block i of the full search's kernel of mode M in shape W: each phase as a
 // loop over the group's lanes
@@ -267,10 +320,11 @@ def host_lib(tmp_path_factory):
     assert r.returncode == 0, r.stderr[-3000:]
     lib = ctypes.CDLL(str(so))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.host_est.argtypes = [p, ll, i, i, p, i, i, i, i, p]
+    lib.host_est.argtypes = [p, ll, i, i, p, p, i, i, i, i, p, i, p]
+    lib.host_est.restype = ll
     lib.host_fast.argtypes = [p, ll, p, i, i, i, p, p]
     lib.host_full.argtypes = [p, ll, i, p, i, i, i, i, i, p, i, p, p]
-    lib.host_est.restype = lib.host_fast.restype = None
+    lib.host_fast.restype = None
     lib.host_full.restype = None
     lib.host_full_orders.argtypes = lib.host_full.argtypes
     lib.host_full_orders.restype = ll
@@ -280,6 +334,8 @@ def host_lib(tmp_path_factory):
     lib.host_scan_min.restype = i
     lib.host_shape.argtypes = [i, p]
     lib.host_shape.restype = None
+    lib.host_est_shape.argtypes = [p]
+    lib.host_est_shape.restype = None
     return lib
 
 
@@ -312,13 +368,24 @@ def _blocks():
     return np.ascontiguousarray(x)
 
 
-def _host_est(lib, x, chans, subsets, plist, levels, k, estimator="bounds"):
+def _host_est(lib, x, chans, subsets, plist, levels, k, estimator="bounds",
+              bar=None, orders=False, deal=None):
+    """bc7_est_topk's contract through the host build, the partitions dealt
+    as the wrapper deals them (or in the order ``deal``); with ``orders``
+    every phase runs in both lane orders and a phase whose two orders differ
+    fails."""
     pl = np.asarray(plist, np.int32)
+    dl = np.asarray(bc7_est.deal_order(tuple(plist), subsets) if deal is None
+                    else deal, np.int32)
     k = min(k, len(pl))
     ids = np.zeros((x.shape[0], k), np.int32)
-    lib.host_est(x.ctypes.data, x.shape[0], chans, subsets, pl.ctypes.data,
-                 len(pl), levels, k, int(estimator == "pca"),
-                 ids.ctypes.data)
+    bar_np = None if bar is None else np.ascontiguousarray(bar, np.uint8)
+    races = lib.host_est(x.ctypes.data, x.shape[0], chans, subsets,
+                         pl.ctypes.data, dl.ctypes.data, len(pl), levels, k,
+                         int(estimator == "pca"),
+                         None if bar_np is None else bar_np.ctypes.data,
+                         int(orders), ids.ctypes.data)
+    assert races == 0, f"{races} shortlist phases depend on their lane order"
     return ids
 
 
@@ -342,13 +409,50 @@ EST_CASES = {
 }
 
 
-@pytest.mark.parametrize("name", list(EST_CASES))
+@pytest.mark.parametrize(
+    "name", [*EST_CASES, *(f"{n}_barred" for n in EST_CASES)])
 def test_host_built_shortlist_equals_plain_version(host_lib, name):
+    """The lane-group shortlist, each phase in both lane orders, against the
+    plain version; ``_barred``: with a bar on every third block and on the
+    fourth quarter, whose blocks get the list's first k ids on both sides."""
     x = _blocks()
-    cfg = EST_CASES[name]
-    got = _host_est(host_lib, x, **cfg)
+    cfg = EST_CASES[name.removesuffix("_barred")]
+    bar = None
+    if name.endswith("_barred"):
+        bar = np.zeros(x.shape[0], bool)
+        bar[::3] = True
+        bar[3 * x.shape[0] // 4:] = True
+    got = _host_est(host_lib, x, **cfg, bar=bar, orders=True)
+    want = bc7_est.estimate_topk_plain(
+        torch.from_numpy(x), **cfg,
+        bar=None if bar is None else torch.from_numpy(bar)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("deal", ["list", "reversed", "shuffled"])
+def test_shortlist_ids_do_not_depend_on_the_deal(host_lib, deal):
+    """Any order of dealing the partitions to the lanes gives the plain
+    version's ids, ties included (blocks split exactly along a shape, solid
+    blocks)."""
+    x = _blocks()
+    cfg = EST_CASES["rgb_2sub_64_k9"]
+    n = len(cfg["plist"])
+    order = {"list": list(range(n)), "reversed": list(range(n))[::-1],
+             "shuffled": np.random.default_rng(4).permutation(n).tolist()}
+    got = _host_est(host_lib, x, **cfg, deal=order[deal])
     want = bc7_est.estimate_topk_plain(torch.from_numpy(x), **cfg).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_shortlist_launch_shape_is_the_wrappers(host_lib):
+    """The header's lanes per block and threads per CTA are what
+    ``bc7_est.EST_LANES`` and ``bc7_est.EST_THREADS`` report; a group lies
+    inside one warp."""
+    out = np.zeros(2, np.int32)
+    host_lib.host_est_shape(out.ctypes.data)
+    assert tuple(int(v) for v in out) == (bc7_est.EST_LANES,
+                                          bc7_est.EST_THREADS)
+    assert 32 % bc7_est.EST_LANES == 0 and bc7_est.EST_THREADS % 32 == 0
 
 
 FAST_CASES = {

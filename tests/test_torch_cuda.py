@@ -117,6 +117,57 @@ def test_shortlist_kernel_equals_plain_version(name):
     assert torch.equal(ik, bc7_est.estimate_topk_plain(x, **EST_CASES[name]))
 
 
+BC1_BUDGETS = {
+    "default": {},
+    "use_alpha": {"use_alpha": True, "alpha_threshold": 0.5},
+    "four_only": {"allow_three": False},
+    "b3d": {"b3d": True},
+}
+
+
+@pytest.mark.parametrize("budget", list(BC1_BUDGETS))
+@pytest.mark.parametrize("n", [1, 3, 4097])
+def test_bc1_kernel_at_block_counts_that_do_not_fill_a_cta(n, budget):
+    """K1a encodes 32 blocks per CTA (64 with the 4-colour mode alone), two
+    lanes per block and mode: grids whose last CTA is partly empty, words
+    and errors bit-identical to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kw = BC1_BUDGETS[budget]
+    if kw.get("b3d") and n > 1000:
+        n = 1025
+    x = torch.from_numpy(_blocks(max(n, 128), seed=n)[:n].copy()).cuda()
+    wk, ek = bc1.encode_bc1_blocks(x, **kw)
+    wp, ep = bc1.encode_bc1_blocks_plain(x, **kw)
+    assert torch.equal(wk, wp)
+    assert torch.equal(ek, ep)
+
+
+@pytest.mark.parametrize("barred", [False, True], ids=["free", "barred"])
+@pytest.mark.parametrize("n", [1, 3, 4097])
+@pytest.mark.parametrize("name", ["rgb_2sub", "rgb_3sub", "rgba_pca"])
+def test_shortlist_kernel_at_block_counts_that_do_not_fill_a_cta(name, n,
+                                                                 barred):
+    """K3 ranks 16 blocks per CTA, 8 lanes per block: grids whose last CTA is
+    partly empty, and a bar on every other block (those get the list's first
+    k ids); ids equal the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.from_numpy(_blocks(max(n, 128), seed=n)[:n].copy()).cuda()
+    cfg = EST_CASES[name]
+    bar = None
+    if barred:
+        bar = torch.zeros(n, dtype=torch.bool, device="cuda")
+        bar[::2] = True
+    ik = bc7_est.estimate_topk(x, **cfg, bar=bar)
+    torch.cuda.synchronize()
+    assert torch.equal(ik, bc7_est.estimate_topk_plain(x, **cfg, bar=bar))
+    if barred:
+        first = torch.tensor(cfg["plist"][:cfg["k"]], dtype=torch.int32,
+                             device="cuda")
+        assert (ik[bar] == first).all()
+
+
 def test_bc7_wrappers_raise_on_what_the_kernels_do_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -126,6 +177,8 @@ def test_bc7_wrappers_raise_on_what_the_kernels_do_not_take():
         bc7_est.estimate_topk(x.double(), **cfg)
     with pytest.raises(ValueError):
         bc7_est.estimate_topk(x, **dict(cfg, k=bc7_est.MAX_K + 1))
+    with pytest.raises(ValueError):
+        bc7_est.estimate_topk(x, **cfg, bar=torch.zeros(64, dtype=torch.bool))
     ids = bc7_est.estimate_topk(x, **cfg)
     with pytest.raises(ValueError):
         bc7_fast.bc7_fast_search(x, ids.long())
