@@ -1469,7 +1469,9 @@ def main() -> int:
             signed_max_abs_err=rs["max_abs_err"],
             blocks_per_mode=r["blocks_per_mode"],
             signed_blocks_per_mode=rs["blocks_per_mode"],
-            around_plain=around, resources=regs)
+            around_plain=around,
+            lanes_per_block=bc6h.BC6H_LANES,
+            threads_per_cta=bc6h.BC6H_THREADS, resources=regs)
 
     # K3's launch shape and resources, beside each of its rows
     est_shape = dict(lanes_per_block=bc7_est.EST_LANES,
@@ -1519,6 +1521,11 @@ def main() -> int:
                         * bc1.BC1_LANES,
                         resources=[k for k in resources
                                    if k["lib"] == "bc1"])
+        if name == "bc7_fast":
+            more = dict(lanes_per_block=bc7_fast.FAST_LANES,
+                        threads_per_cta=bc7_fast.FAST_THREADS,
+                        resources=[k for k in resources
+                                   if k["lib"] == "bc7_fast"])
         final.append(kernel_row(name, r, x, ops_per_block(name, x), **more))
 
     if args.out:

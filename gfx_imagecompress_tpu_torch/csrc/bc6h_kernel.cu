@@ -13,5 +13,6 @@
 // mode of 1..14, `fb` -1 or an enabled mode index: the solid-mean fallback).
 extern "C" int bc6h_encode(const int* h, long long n, int sg, int topk, int iters, int shake,
                            int mode_mask, int fb, uint32_t* words, float* err, void* stream) {
-  return bc6h::launch(h, n, sg, topk, iters, shake, mode_mask, fb, words, err, stream);
+  return bc6h::launch<bc6h::LANES>(h, n, sg, topk, iters, shake, mode_mask, fb, words, err,
+                                   stream);
 }

@@ -1,260 +1,79 @@
 // Fast BC7 search (K4): mode 6 raced against mode 1 over a shortlist of
-// partitions, the bc7enc16-style search of kernels/bc7_fast.py.
+// partitions, the bc7enc16-style search of kernels/bc7_fast.py. Replaces the
+// Pallas kernel gfx_imagecompress_tpu/kernels/bc7_fast_pallas.py:_bc7fast_kernel
+// (:692, launched at :788).
 //
 // What bounds it: operations. A block is 256 bytes in, 4*K bytes of ids in
 // and 20 bytes out against 10^5 float operations of fits, quantisations and
-// exact palette evaluations.
-// What the design does about it: one thread per block, the 64 pixel floats in
-// registers for the whole search. Metric-space (YCbCr) pixels are recomputed
-// from RGB where they are used instead of held. A palette entry is computed
-// for the one index a pixel selects, not the whole palette with a select
-// chain. The 16 indices of a block travel packed in one 64-bit word, 4 bits
-// each, so the anchor read and the index complement are shifts and masks and
-// nothing is indexed dynamically. Candidate, variant and partition loops stay
-// rolled with one call site per heavy function; pixel and channel loops are
-// unrolled. A masked pass visits only the subset's pixels. Blocks with alpha
-// skip mode 1, which they could never take.
+// exact palette evaluations: at the default budget mode 6's fit and 20
+// refits, 8 partition-subset fits of mode 1, the single-colour candidate and
+// 38 uber refits of mode 1's winner, each with an exact palette assign.
+//
+// What the design does about it: a group of FAST_LANES lanes encodes one
+// block; a CTA holds several groups. Measured on the H100 at 2, 4, 8 and 16
+// lanes (PERF.md): 2 is the fastest at every budget on a 1K image, the
+// `fast` one included (more lanes idle more in the one-item phases). The group loads its block once (float4
+// loads side by side) into shared memory, scaled to 0..255, and every lane
+// reads pixels from there. The search is a sequence of phases, each dealing
+// independent candidates to the lanes:
+//   a. one item per (shortlisted partition, subset) of mode 1 (a chunk of
+//      partitions at a time), mode 6's initial fit (step 0), and the
+//      single-colour candidate; a block with alpha runs step 0 alone;
+//   b. mode 6's refit from step 0's indices (step 1) on lane 0; beside it on
+//      lane 1 the mode-1 scan over the chunk's partitions in list order, after
+//      the last chunk the single-colour candidate, then the uber entries;
+//   c. uber, one item per (group, variant): mode 6's variants of the indices
+//      after step 1, then mode 1's subset 0's and subset 1's variants of the
+//      winner's indices, in chunks of slots;
+//   d. per chunk, one scan per group, the group's entry first;
+//   e. the race of the two modes and the pack, on lane 0.
+// A lane computes its candidate whole with the plain version's arithmetic and
+// writes (error, state) to a slot; after the group's barrier the winner is
+// picked by a scan of the slots in the sequential order with the sequential
+// loops' compares (scan_min, uber_pick: strict <, the incumbent and then the
+// earlier candidate keep ties). No sum is reordered.
+// Why the groups are independent: mode 6's variants read only the indices
+// after step 1 and fall back to the initial fit; a mode-1 subset's variants
+// read and write only that subset's index fields and endpoints (the plain
+// loop updates subset 0 before subset 1, and subset 1 reads none of what that
+// update writes), so the two subsets' winners are kept apart (Chain<2>'s
+// per-subset fields) and only the pack joins them.
+// The fits, refits and assigns are the masked passes of bc7_group.cuh, shared
+// with the full search: a pass visits only its subset's pixels; mode 6's
+// passes are the counted 16-pixel loops. The metric is a template argument:
+// perceptual (YCbCr, bc7enc16's weights) or RGB.
+//
+// The route is CUDA C++: integer bit-fields, data-dependent loops and
+// per-lane branching. Tensor cores (wgmma) and TMA are not used: the arithmetic
+// is scalar float32 with a fixed order of summation, which no matrix unit
+// keeps, and a block reads only 256 bytes.
 //
 // Bit-agreement with the plain version: candidates in its order, strict <
 // (first wins), sums over pixels left to right in pixel order, Python-double
 // constants rounded once to float, rintf for half-to-even, no multiply-add
 // contraction (build flag).
 #pragma once
-#include "bc7_common.cuh"
+#include "bc7_group.cuh"
 
 namespace bc7 {
 
-typedef unsigned long long u64;
-
-__device__ __forceinline__ int get4(u64 v, int p) { return (int)((v >> (4 * p)) & 15ull); }
-
-// 16-bit pixel mask -> the same pixels' 4-bit index fields
-__device__ __forceinline__ u64 nibble_mask(uint32_t mask) {
-  u64 m = 0;
-#pragma unroll
-  for (int p = 0; p < 16; ++p) m |= ((mask >> p) & 1u) ? (15ull << (4 * p)) : 0ull;
-  return m;
-}
-
-template <int IB>
-__device__ __forceinline__ int weight(int i) {
-  return IB == 4 ? weight4(i) : (IB == 3 ? weight3(i) : weight2(i));
-}
-
-// interpolation level of index i as a float (w / 64, exact)
-template <int IB>
-__device__ __forceinline__ float level(int i) {
-  return (float)weight<IB>(i) * (1.0f / 64.0f);
-}
-
-// number of level midpoints below t: the index of the nearest level
-template <int IB>
-__device__ __forceinline__ int quantize_t(float t) {
-  int idx = 0;
-#pragma unroll
-  for (int j = 0; j < (1 << IB) - 1; ++j)
-    idx += (t > (float)(weight<IB>(j) + weight<IB>(j + 1)) * (1.0f / 128.0f)) ? 1 : 0;
-  return idx;
-}
-
-// RGB -> metric space: identity, or the integer YCbCr map of bc7enc16's
-// compute_color_distance_rgb as one linear map (entries exact in float)
-__device__ __forceinline__ void to_metric(bool perc, float r, float g, float b, float* o) {
-  if (perc) {
-    o[0] = (109.0f / 256.0f) * r + (366.0f / 256.0f) * g + (37.0f / 256.0f) * b;
-    o[1] = (403.0f / 256.0f) * r + (-366.0f / 256.0f) * g + (-37.0f / 256.0f) * b;
-    o[2] = (-109.0f / 256.0f) * r + (-366.0f / 256.0f) * g + (475.0f / 256.0f) * b;
-  } else {
-    o[0] = r;
-    o[1] = g;
-    o[2] = b;
-  }
-}
-
-__device__ __forceinline__ float metric_weight(bool perc, int c) {
-  if (!perc) return 1.0f;
-  return c == 0 ? 512.0f : (c == 1 ? 103.0f : (c == 2 ? 18.0f : 128.0f));
-}
-
-// ---- projection of a pixel on the segment e0 -> e1
-template <int NC>
-struct Proj {
-  float e0[NC], dirv[NC], inv;
+// Launch shape with L lanes per block: SLOTS candidates per chunked phase
+// (uber items, or SLOTS / 2 partitions of mode 1).
+template <int L>
+struct FastShape {
+  enum {
+    LANES = L,
+    THREADS = L >= 4 ? 128 : 64,  // threads per CTA
+    BLOCKS = THREADS / L,         // BC7 blocks per CTA
+    MIN_CTAS = 512 / THREADS,     // CTAs per SM: at most 128 registers
+    SLOTS = 4 * L,
+  };
 };
 
-template <int NC>
-__device__ __forceinline__ void make_proj(const float (&e0)[NC], const float (&e1)[NC],
-                                          bool perc, bool weighted, Proj<NC>& pr) {
-  float l2 = 0.0f;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const float d = e1[c] - e0[c];
-    pr.e0[c] = e0[c];
-    pr.dirv[c] = weighted ? d * metric_weight(perc, c) : d;
-    l2 = l2 + pr.dirv[c] * d;
-  }
-  pr.inv = l2 > 1e-8f ? 1.0f / fmaxf(l2, 1e-8f) : 0.0f;
-}
+// the lanes per block of bc7_fast_encode (kernels/bc7_fast.py FAST_LANES)
+constexpr int FAST_LANES = 2;
 
-template <int NC, int IB>
-__device__ __forceinline__ int proj_index(const Proj<NC>& pr, const float (&px)[NC]) {
-  float t = 0.0f;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) t = t + (px[c] - pr.e0[c]) * pr.dirv[c];
-  return quantize_t<IB>(t * pr.inv);
-}
-
-// ---- least-squares endpoints for fixed indices over the pixels of `mask`;
-// e0/e1 come in as the fallback and stay where the system is singular
-template <int NC, int IB>
-__device__ __forceinline__ void lsq_refit(const float (&xs)[4][16], u64 idx, uint32_t mask,
-                                          float (&e0)[NC], float (&e1)[NC]) {
-  float q00 = 0.0f, q01 = 0.0f, q11 = 0.0f;
-  float b0[NC], b1[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) b0[c] = b1[c] = 0.0f;
-#pragma unroll
-  for (int p = 0; p < 16; ++p)
-    if ((mask >> p) & 1u) {
-      const float a = level<IB>(get4(idx, p));
-      const float one_a = 1.0f - a;
-      q00 = q00 + one_a * (1.0f - a);
-      q01 = q01 + one_a * a;
-      q11 = q11 + a * a;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        b0[c] = b0[c] + one_a * xs[c][p];
-        b1[c] = b1[c] + a * xs[c][p];
-      }
-    }
-  const float det = q00 * q11 - q01 * q01;
-  const bool ok = fabsf(det) > 1e-6f;
-  const float inv = 1.0f / (ok ? det : 1.0f);
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const float n0 = (q11 * b0[c] - q01 * b1[c]) * inv;
-    const float n1 = (q00 * b1[c] - q01 * b0[c]) * inv;
-    e0[c] = ok ? n0 : e0[c];
-    e1[c] = ok ? n1 : e1[c];
-  }
-}
-
-// ---- ones-seeded power iteration on a symmetric covariance, 8 rounds, then
-// normalised with `fallback` for a vanishing axis
-template <int NC>
-__device__ __forceinline__ void principal_axis(const float (&cov)[NC][NC], float fallback,
-                                               float (&axis)[NC]) {
-  float v[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) v[c] = 1.0f;
-#pragma unroll 1
-  for (int it = 0; it < 8; ++it) {
-    float nv[NC];
-    float n2 = 0.0f;
-#pragma unroll
-    for (int a = 0; a < NC; ++a) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int b = 0; b < NC; ++b) acc = acc + cov[a][b] * v[b];
-      nv[a] = acc;
-      n2 = n2 + acc * acc;
-    }
-    const float n = sqrtf(n2);
-    const bool ok = n > 1e-8f;
-    const float inv = 1.0f / fmaxf(n, 1e-8f);
-#pragma unroll
-    for (int a = 0; a < NC; ++a) v[a] = ok ? nv[a] * inv : v[a];
-  }
-  float n2 = 0.0f;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) n2 = n2 + v[c] * v[c];
-  const float n = sqrtf(n2);
-  const bool ok = n > 1e-8f;
-  const float inv = 1.0f / fmaxf(n, 1e-8f);
-#pragma unroll
-  for (int c = 0; c < NC; ++c) axis[c] = ok ? v[c] * inv : fallback;
-}
-
-// ---- PCA + least-squares line fit over the pixels of `mask`, `iters`
-// least-squares rounds. NC = 4, IB = 4 with the full mask is mode 6's fit;
-// NC = 3, IB = 3 a mode-1 subset's. `full` (all 16 pixels) drops the guards
-// of an empty extent, which cannot arise then.
-template <int NC, int IB>
-__device__ __forceinline__ void fit_line(const float (&xs)[4][16], uint32_t mask, bool full,
-                                         int iters, float (&e0)[NC], float (&e1)[NC]) {
-  const float cnt = full ? 16.0f : fmaxf((float)__popc(mask), 1.0f);
-  float mean[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int p = 0; p < 16; ++p)
-      if ((mask >> p) & 1u) acc = acc + xs[c][p];
-    mean[c] = acc / cnt;
-  }
-  float cov[NC][NC];
-#pragma unroll
-  for (int a = 0; a < NC; ++a)
-#pragma unroll
-    for (int b = a; b < NC; ++b) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int p = 0; p < 16; ++p)
-        if ((mask >> p) & 1u) acc = acc + (xs[a][p] - mean[a]) * (xs[b][p] - mean[b]);
-      cov[a][b] = acc;
-      cov[b][a] = acc;
-    }
-  float axis[NC];
-  principal_axis<NC>(cov, NC == 4 ? 0.5f : 0.57735026f, axis);
-  float tmin = full ? INFINITY : 1e30f, tmax = full ? -INFINITY : -1e30f;
-#pragma unroll
-  for (int p = 0; p < 16; ++p)
-    if ((mask >> p) & 1u) {
-      float t = 0.0f;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) t = t + (xs[c][p] - mean[c]) * axis[c];
-      tmin = fminf(tmin, t);
-      tmax = fmaxf(tmax, t);
-    }
-  if (!full) {
-    tmin = tmin > tmax ? 0.0f : tmin;
-    tmax = tmax < tmin ? 0.0f : tmax;
-  }
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    e0[c] = mean[c] + tmin * axis[c];
-    e1[c] = mean[c] + tmax * axis[c];
-  }
-#pragma unroll 1
-  for (int it = 0; it < iters; ++it) {
-    Proj<NC> pr;
-    make_proj<NC>(e0, e1, false, false, pr);
-    u64 idx = 0;
-#pragma unroll
-    for (int p = 0; p < 16; ++p)
-      if ((mask >> p) & 1u) {
-        float px[NC];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) px[c] = xs[c][p];
-        idx |= (u64)proj_index<NC, IB>(pr, px) << (4 * p);
-      }
-    lsq_refit<NC, IB>(xs, idx, mask, e0, e1);
-  }
-}
-
-// ---- endpoint quantisation with a p-bit
-template <int BITS>
-__device__ __forceinline__ void quant_pbit(float e, int p, int& q, int& deq) {
-  constexpr int total = BITS + 1;
-  const float wv = e * (float)((double)((1 << total) - 1) / 255.0);
-  const float r = rintf((wv - (float)p) * 0.5f);
-  q = (int)fminf(fmaxf(r, 0.0f), (float)((1 << BITS) - 1));
-  const int full = (q << 1) | p;
-  deq = (full << (8 - total)) | (full >> (2 * total - 8));
-}
-
-__device__ __forceinline__ float clamp255(float e) { return fminf(fmaxf(e, 0.0f), 255.0f); }
-
+// ---- endpoint quantisation with p-bits
 // per-endpoint p-bit of mode 6: the p with the lower rounding error, 0 on a tie
 __device__ __forceinline__ void pbit_endpoint(const float (&e)[4], int (&q)[4], int (&d)[4],
                                               int& pbit) {
@@ -267,7 +86,7 @@ __device__ __forceinline__ void pbit_endpoint(const float (&e)[4], int (&q)[4], 
     for (int c = 0; c < 4; ++c) {
       const float ec = clamp255(e[c]);
       quant_pbit<7>(ec, p, qa[p][c], da[p][c]);
-      const float diff = (float)da[p][c] - ec;
+      const float diff = bcx::i2f(da[p][c]) - ec;
       acc = acc + diff * diff;
     }
     err[p] = acc;
@@ -295,7 +114,7 @@ __device__ __forceinline__ void pbit_shared(const float (&e0)[3], const float (&
       const float a = clamp255(e0[c]), b = clamp255(e1[c]);
       quant_pbit<6>(a, p, qa0[p][c], da0[p][c]);
       quant_pbit<6>(b, p, qa1[p][c], da1[p][c]);
-      const float fa = (float)da0[p][c] - a, fb = (float)da1[p][c] - b;
+      const float fa = bcx::i2f(da0[p][c]) - a, fb = bcx::i2f(da1[p][c]) - b;
       acc = acc + fa * fa + fb * fb;
     }
     err[p] = acc;
@@ -311,189 +130,229 @@ __device__ __forceinline__ void pbit_shared(const float (&e0)[3], const float (&
   }
 }
 
-// ---- exact palette assign in metric space. The index is the quantised
-// projection on palette[0] -> palette[last]; the error is the distance to the
-// decoder's entry for that index. ALL: every pixel is evaluated, err_in sums
-// the pixels of `mask` and err_out the others; otherwise only the pixels of
-// `mask` are visited and the other index fields stay 0.
-template <int NC, int IB, bool ALL>
-__device__ __forceinline__ void assign_exact(const float (&xs)[4][16], bool perc,
-                                             const int (&d0)[NC], const int (&d1)[NC],
-                                             uint32_t mask, u64& idx, float& err_in,
-                                             float& err_out) {
-  float p0[NC], p1[NC];
-  to_metric(perc, (float)d0[0], (float)d0[1], (float)d0[2], p0);
-  to_metric(perc, (float)d1[0], (float)d1[1], (float)d1[2], p1);
-  if (NC == 4) {
-    p0[NC - 1] = (float)d0[NC - 1];
-    p1[NC - 1] = (float)d1[NC - 1];
+__device__ __forceinline__ int expand7(int q, int pb) {
+  const int x = ((q << 1) | pb) << 1;
+  return x | (x >> 7);
+}
+
+// mode 6: per-endpoint p-bits, 7-bit codes, one exact assign of all 16 pixels
+template <bool PERC, class X>
+__device__ __forceinline__ void quant6(const X& xs, const float (&e0)[4], const float (&e1)[4],
+                                       Sub& out, u64& idx) {
+  int q0[4], q1[4], d0[4], d1[4];
+  pbit_endpoint(e0, q0, d0, out.p0);
+  pbit_endpoint(e1, q1, d1, out.p1);
+  out.q0 = out.q1 = 0u;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    setq(out.q0, c, q0[c]);
+    setq(out.q1, c, q1[c]);
   }
-  Proj<NC> pr;
-  make_proj<NC>(p0, p1, perc, true, pr);
-  idx = 0;
-  err_in = 0.0f;
-  err_out = 0.0f;
+  assign_sub<4, 0, 4, true, PERC>(xs, d0, d1, 0xFFFFu, idx, out.err);
+}
+
+// mode 1: 6-bit endpoints and a shared p-bit for the pixels of `mask`, one
+// exact assign
+template <bool PERC, class X>
+__device__ __forceinline__ void quant1(const X& xs, uint32_t mask, const float (&e0)[3],
+                                       const float (&e1)[3], Sub& out, u64& idx) {
+  int q0[3], q1[3], d0[3], d1[3], pb;
+  pbit_shared(e0, e1, q0, d0, q1, d1, pb);
+  out.q0 = out.q1 = 0u;
 #pragma unroll
-  for (int p = 0; p < 16; ++p) {
-    const bool in = (mask >> p) & 1u;
-    if (ALL || in) {
-      float ms[NC];
-      to_metric(perc, xs[0][p], xs[1][p], xs[2][p], ms);
-      if (NC == 4) ms[NC - 1] = xs[3][p];
-      const int i = proj_index<NC, IB>(pr, ms);
-      const int wk = weight<IB>(i);
-      float sel[NC];
-      to_metric(perc, (float)lerp64(d0[0], d1[0], wk), (float)lerp64(d0[1], d1[1], wk),
-                (float)lerp64(d0[2], d1[2], wk), sel);
-      if (NC == 4) sel[NC - 1] = (float)lerp64(d0[NC - 1], d1[NC - 1], wk);
-      float d = 0.0f;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float diff = ms[c] - sel[c];
-        d = d + metric_weight(perc, c) * diff * diff;
-      }
-      idx |= (u64)i << (4 * p);
-      if (in)
-        err_in = err_in + d;
-      else
-        err_out = err_out + d;
-    }
+  for (int c = 0; c < 3; ++c) {
+    setq(out.q0, c, q0[c]);
+    setq(out.q1, c, q1[c]);
   }
+  out.p0 = out.p1 = pb;
+  assign_sub<3, 0, 3, false, PERC>(xs, d0, d1, mask, idx, out.err);
 }
 
-// ---- selector variants of the uber machinery. v < 3: the +-1 perturbations
-// of the extreme selectors; v >= 3: the selector-scaling extrapolations in
-// (ly, hy) order. Returns false for the (0, max_sel) combination, which is
-// the identity and is not a variant.
-__device__ __forceinline__ bool selector_variant(u64 base, uint32_t mask, int v, int q,
-                                                 int max_sel, int mn, int mx, u64& out) {
-  out = 0;
-  if (v < 3) {
-#pragma unroll
-    for (int p = 0; p < 16; ++p)
-      if ((mask >> p) & 1u) {
-        const int r = get4(base, p);
-        const bool up = r == mn && r < max_sel;
-        const bool dn = r == mx && r > 0;
-        int o = r;
-        if (v == 0)
-          o = up ? r + 1 : r;
-        else if (v == 1)
-          o = dn ? r - 1 : r;
-        else
-          o = up ? r + 1 : (dn ? r - 1 : r);
-        out |= (u64)o << (4 * p);
-      }
-    return true;
-  }
-  const int span = q + 2;
-  const int ly = -q + (v - 3) / span;
-  const int hy = max_sel - 1 + (v - 3) % span;
-  if (ly == 0 && hy == max_sel) return false;
-  const float fms = (float)max_sel, fly = (float)ly, fden = (float)(hy - ly);
-#pragma unroll
-  for (int p = 0; p < 16; ++p)
-    if ((mask >> p) & 1u) {
-      const float r = (float)get4(base, p);
-      const float s = floorf(fms * (r - fly) / fden + 0.5f);
-      out |= (u64)(int)fminf(fmaxf(s, 0.0f), fms) << (4 * p);
-    }
-  return true;
-}
-
-// number of variant slots (including the skipped identity) at an uber level
-__device__ __forceinline__ int variant_slots(int uber, int& q) {
-  q = uber >= 4 ? uber - 2 : 1;
-  if (uber <= 0) return 0;
-  return 3 + (uber >= 2 ? (q + 2) * (q + 2) : 0);
-}
-
-__device__ __forceinline__ void index_extremes(u64 idx, uint32_t mask, int& mn, int& mx) {
-  mn = 1 << 20;
-  mx = -(1 << 20);
-#pragma unroll
-  for (int p = 0; p < 16; ++p)
-    if ((mask >> p) & 1u) {
-      const int r = get4(idx, p);
-      mn = min(mn, r);
-      mx = max(mx, r);
-    }
-}
-
-// --------------------------------------------------------------- mode 6 ---
-struct State6 {
-  float err;
-  int q0[4], q1[4], p0, p1;
-  u64 idx;
+// ---- the group's shared state
+template <int L>
+struct FastShared {
+  float xs[4][16];      // the block scaled to 0..255
+  float f0[4], f1[4];   // mode 6's initial fit, every refit's fallback
+  Sub s6;               // mode 6's running best and its indices
+  u64 idx6;
+  Chain<2> st1;         // mode 1's running best
+  Chain<2> solid;       // the single-colour candidate
+  Entry ent[3];         // the uber groups: mode 6, mode 1's subsets 0 and 1
+  Slot slot[FastShape<L>::SLOTS];
 };
 
-__device__ __forceinline__ void mode6(const float (&xs)[4][16], bool perc, int uber,
-                                      State6& st) {
-  float f0[4], f1[4];
-  fit_line<4, 4>(xs, 0xFFFFu, true, 2, f0, f1);
-  int q;
-  const int nsteps = 2 + variant_slots(uber, q);
-  u64 base = 0;
-  int mn = 0, mx = 0;
-  st.err = 0.0f;
-  // step 0: the initial fit; step 1: a refit from the winner's indices;
-  // steps 2..: refits from the variants of the indices after step 1. Every
-  // refit falls back to the initial fit.
+// ---- the items
+
+// mode 1, partition `pid`, subset s: the masked fit and the quantisation
+template <bool PERC, class X>
+__device__ __forceinline__ void part_item(const X& xs, int pid, int s, Slot& out) {
+  const uint32_t bits = P2[pid];
+  const uint32_t mask = s ? (bits & 0xFFFFu) : (~bits & 0xFFFFu);
+  float e0[3], e1[3];
+  fit_sub<3, 3, false>(xs, mask, 2, e0, e1);
+  quant1<PERC>(xs, mask, e0, e1, out.s, out.idx);
+}
+
+// mode 6, step 0: the initial fit, kept as the refits' fallback
+template <int L, bool PERC>
+__device__ __forceinline__ void mode6_fit(FastShared<L>& sh) {
+  fit_sub<4, 4, true>(sh.xs, 0xFFFFu, 2, sh.f0, sh.f1);
+  quant6<PERC>(sh.xs, sh.f0, sh.f1, sh.s6, sh.idx6);
+}
+
+// mode 6, step 1: a refit from step 0's indices, kept on a strict <; then the
+// uber entry, the indices after it
+template <int L, bool PERC>
+__device__ __forceinline__ void mode6_refit(FastShared<L>& sh, int nvar) {
+  float e0[4], e1[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    e0[c] = sh.f0[c];
+    e1[c] = sh.f1[c];
+  }
+  refit_sub<4, 4, true>(sh.xs, sh.idx6, 0xFFFFu, e0, e1);
+  Sub c;
+  u64 ci;
+  quant6<PERC>(sh.xs, e0, e1, c, ci);
+  if (c.err < sh.s6.err) {
+    sh.s6 = c;
+    sh.idx6 = ci;
+  }
+  if (nvar) {
+    Entry& e = sh.ent[0];
+    e.base = sh.idx6;
+    e.mask = 0xFFFFu;
+    index_extremes(e.base, e.mask, e.mn, e.mx);
+  }
+}
+
+// whole-block single-colour candidate: partition 0, both subsets the optimal
+// table endpoints of the block's mean colour (the sums of the unscaled RGB
+// pixels, read again from device memory in pixel order); each subset's error
+// its own masked assign
+template <int L, bool PERC>
+__device__ __forceinline__ void solid_item(FastShared<L>& sh, const float* __restrict__ x) {
+  const float4* p4 = reinterpret_cast<const float4*>(x);
+  float raw[3];
 #pragma unroll 1
-  for (int step = 0; step < nsteps; ++step) {
+  for (int p = 0; p < 16; ++p) {
+    const float4 v = p4[p];
+    raw[0] = p ? raw[0] + v.x : v.x;
+    raw[1] = p ? raw[1] + v.y : v.y;
+    raw[2] = p ? raw[2] + v.z : v.z;
+  }
+  int cv[3];
+  int e[2] = {0, 0};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    cv[c] = (int)fminf(fmaxf(rintf(raw[c] / 16.0f * 255.0f), 0.0f), 255.0f);
+    e[0] += (int)(SOLID1[2 * cv[c]] >> 16);
+    e[1] += (int)(SOLID1[2 * cv[c] + 1] >> 16);
+  }
+  const int pb = e[1] < e[0] ? 1 : 0;
+  Chain<2>& out = sh.solid;
+  Sub s;
+  s.q0 = s.q1 = 0u;
+  s.p0 = s.p1 = pb;
+  int d0[3], d1[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const uint32_t t = SOLID1[2 * cv[c] + pb];
+    setq(s.q0, c, (int)(t & 0xFFu));
+    setq(s.q1, c, (int)((t >> 8) & 0xFFu));
+    d0[c] = expand7(getq(s.q0, c), pb);
+    d1[c] = expand7(getq(s.q1, c), pb);
+  }
+  out.pid = 0;
+#pragma unroll 1
+  for (int k = 0; k < 2; ++k) {
+    out.s[k] = s;
+    const uint32_t mask = k ? (P2[0] & 0xFFFFu) : (~P2[0] & 0xFFFFu);
+    assign_sub<3, 0, 3, false, PERC>(sh.xs, d0, d1, mask, out.idx[k], out.s[k].err);
+  }
+  out.err = out.s[0].err + out.s[1].err;
+}
+
+// the mode-1 scan over a chunk's partitions k0.. in list order (the first
+// partition of the list taken as is, strict < after); after the last chunk
+// the single-colour candidate on a strict <, then the uber entries
+template <int L>
+__device__ __forceinline__ void mode1_scan(FastShared<L>& sh, const int* __restrict__ ids,
+                                           int k0, int nk, bool last, int nvar) {
+  Chain<2>& st = sh.st1;
+#pragma unroll 1
+  for (int kk = 0; kk < nk; ++kk) {
+    const Slot& a = sh.slot[2 * kk];
+    const Slot& b = sh.slot[2 * kk + 1];
+    const float e = a.s.err + b.s.err;
+    if (k0 + kk == 0 || e < st.err) {
+      st.err = e;
+      st.pid = ids[k0 + kk];
+      st.s[0] = a.s;
+      st.s[1] = b.s;
+      st.idx[0] = a.idx;
+      st.idx[1] = b.idx;
+    }
+  }
+  if (!last) return;
+  if (sh.solid.err < st.err) st = sh.solid;
+  if (!nvar) return;
+  const uint32_t bits = P2[st.pid];
+#pragma unroll 1
+  for (int s = 0; s < 2; ++s) {
+    Entry& e = sh.ent[1 + s];
+    e.s = st.s[s];
+    e.base = st.idx[s];
+    e.mask = s ? (bits & 0xFFFFu) : (~bits & 0xFFFFu);
+    index_extremes(e.base, e.mask, e.mn, e.mx);
+  }
+}
+
+// uber item v of group g: g = 0 mode 6 (refit from the variant, falling back
+// to the initial fit), g = 1, 2 mode 1's subset g - 1 (falling back to the
+// entry's decoded endpoints); ok = 0 for the identity variant, skipped
+template <int L, bool PERC>
+__device__ __forceinline__ void uber_item(const FastShared<L>& sh, int g, int v, int q,
+                                          Slot& out) {
+  const Entry& e = sh.ent[g];
+  u64 src;
+  if (g == 0) {
+    out.ok = sel_variant<true>(e.base, 0xFFFFu, v, q, 15, e.mn, e.mx, src) ? 1 : 0;
+    if (!out.ok) return;
     float e0[4], e1[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      e0[c] = f0[c];
-      e1[c] = f1[c];
+      e0[c] = sh.f0[c];
+      e1[c] = sh.f1[c];
     }
-    if (step >= 1) {
-      u64 src = st.idx;
-      if (step >= 2) {
-        if (step == 2) {
-          base = st.idx;
-          index_extremes(base, 0xFFFFu, mn, mx);
-        }
-        if (!selector_variant(base, 0xFFFFu, step - 2, q, 15, mn, mx, src)) continue;
-      }
-      lsq_refit<4, 4>(xs, src, 0xFFFFu, e0, e1);
-    }
-    State6 c;
-    int d0[4], d1[4];
-    pbit_endpoint(e0, c.q0, d0, c.p0);
-    pbit_endpoint(e1, c.q1, d1, c.p1);
-    float unused;
-    assign_exact<4, 4, true>(xs, perc, d0, d1, 0xFFFFu, c.idx, c.err, unused);
-    if (step == 0 || c.err < st.err) st = c;
-  }
-}
-
-// ---- 128-bit block as two 64-bit halves
-struct Bits128 {
-  u64 lo, hi;
-};
-
-__device__ __forceinline__ void put(Bits128& b, int val, int pos, int nb) {
-  const u64 v = (u64)((uint32_t)val & ((1u << nb) - 1u));
-  if (pos < 64) {
-    b.lo |= v << pos;
-    if (pos + nb > 64) b.hi |= v >> (64 - pos);
+    refit_sub<4, 4, true>(sh.xs, src, 0xFFFFu, e0, e1);
+    quant6<PERC>(sh.xs, e0, e1, out.s, out.idx);
   } else {
-    b.hi |= v << (pos - 64);
+    out.ok = sel_variant<false>(e.base, e.mask, v, q, 7, e.mn, e.mx, src) ? 1 : 0;
+    if (!out.ok) return;
+    float e0[3], e1[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      e0[c] = bcx::i2f(expand7(getq(e.s.q0, c), e.s.p0));
+      e1[c] = bcx::i2f(expand7(getq(e.s.q1, c), e.s.p0));
+    }
+    refit_sub<3, 3, false>(sh.xs, src, e.mask, e0, e1);
+    quant1<PERC>(sh.xs, e.mask, e0, e1, out.s, out.idx);
   }
 }
 
-__device__ __forceinline__ Bits128 pack_mode6(const State6& st) {
+// ---- packing
+__device__ __forceinline__ Bits128 pack_mode6(const Sub& st, u64 st_idx) {
   // anchor fix-up: the index MSB of pixel 0 must be 0
-  const bool need = (get4(st.idx, 0) & 8) != 0;
-  const u64 idx = need ? ~st.idx : st.idx;          // 15 - i in every field
+  const bool need = (get4(st_idx, 0) & 8) != 0;
+  const u64 idx = need ? ~st_idx : st_idx;          // 15 - i in every field
   Bits128 b = {0ull, 0ull};
   put(b, 0x40, 0, 8);
   int pos = 7;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    put(b, need ? st.q1[c] : st.q0[c], pos, 7);
-    put(b, need ? st.q0[c] : st.q1[c], pos + 7, 7);
+    put(b, getq(need ? st.q1 : st.q0, c), pos, 7);
+    put(b, getq(need ? st.q0 : st.q1, c), pos + 7, 7);
     pos += 14;
   }
   put(b, need ? st.p1 : st.p0, 63, 1);
@@ -508,150 +367,10 @@ __device__ __forceinline__ Bits128 pack_mode6(const State6& st) {
   return b;
 }
 
-// --------------------------------------------------------------- mode 1 ---
-struct Subset1 {
-  float err;
-  int q0[3], q1[3], pb;
-};
-
-struct State1 {
-  float err;
-  int pid;
-  u64 idx;
-  Subset1 s[2];
-};
-
-// 6-bit endpoints + shared p-bit for the pixels of `mask`, one exact assign
-__device__ __forceinline__ void quant1_subset(const float (&xs)[4][16], bool perc,
-                                              uint32_t mask, const float (&e0)[3],
-                                              const float (&e1)[3], Subset1& out, u64& idx) {
-  int d0[3], d1[3];
-  pbit_shared(e0, e1, out.q0, d0, out.q1, d1, out.pb);
-  float unused;
-  assign_exact<3, 3, false>(xs, perc, d0, d1, mask, idx, out.err, unused);
-}
-
-__device__ __forceinline__ int expand7(int q, int pb) {
-  const int x = ((q << 1) | pb) << 1;
-  return x | (x >> 7);
-}
-
-// whole-block single-colour candidate: partition 0, both subsets the optimal
-// table endpoints of the block's mean colour (raw = per-channel sums of the
-// unscaled pixels)
-__device__ __forceinline__ void solid_candidate(const float (&xs)[4][16], bool perc,
-                                                const float (&raw)[3], State1& out) {
-  int cv[3];
-  int e[2] = {0, 0};
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    cv[c] = (int)fminf(fmaxf(rintf(raw[c] / 16.0f * 255.0f), 0.0f), 255.0f);
-    e[0] += (int)(SOLID1[2 * cv[c]] >> 16);
-    e[1] += (int)(SOLID1[2 * cv[c] + 1] >> 16);
-  }
-  const int pb = e[1] < e[0] ? 1 : 0;
-  int d0[3], d1[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const uint32_t t = SOLID1[2 * cv[c] + pb];
-    out.s[0].q0[c] = out.s[1].q0[c] = (int)(t & 0xFFu);
-    out.s[0].q1[c] = out.s[1].q1[c] = (int)((t >> 8) & 0xFFu);
-    d0[c] = expand7(out.s[0].q0[c], pb);
-    d1[c] = expand7(out.s[0].q1[c], pb);
-  }
-  out.s[0].pb = out.s[1].pb = pb;
-  out.pid = 0;
-  assign_exact<3, 3, true>(xs, perc, d0, d1, ~P2[0] & 0xFFFFu, out.idx, out.s[0].err,
-                           out.s[1].err);
-  out.err = out.s[0].err + out.s[1].err;
-}
-
-__device__ __forceinline__ void mode1(const float (&xs)[4][16], bool perc, int uber,
-                                      const float (&raw)[3], const int* __restrict__ ids,
-                                      int nids, State1& st) {
-  st.err = 0.0f;
-#pragma unroll 1
-  for (int k = 0; k < nids; ++k) {
-    State1 c;
-    c.pid = ids[k];
-    c.idx = 0;
-    const uint32_t bits = P2[c.pid];
-#pragma unroll 1
-    for (int s = 0; s < 2; ++s) {
-      const uint32_t mask = s ? (bits & 0xFFFFu) : (~bits & 0xFFFFu);
-      float e0[3], e1[3];
-      fit_line<3, 3>(xs, mask, false, 2, e0, e1);
-      Subset1 sub;
-      u64 idx;
-      quant1_subset(xs, perc, mask, e0, e1, sub, idx);
-      c.idx |= idx;
-      if (s == 0)
-        c.s[0] = sub;
-      else
-        c.s[1] = sub;
-    }
-    c.err = c.s[0].err + c.s[1].err;
-    if (k == 0 || c.err < st.err) st = c;
-  }
-  {
-    State1 c;
-    solid_candidate(xs, perc, raw, c);
-    if (c.err < st.err) st = c;
-  }
-  int q;
-  const int nvar = variant_slots(uber, q);
-  if (nvar == 0) return;
-  // uber rounds on the winner's subsets: the variants of a subset derive from
-  // the indices at entry to that subset's loop (subset 1 sees subset 0's
-  // result); the least-squares fallback is the entry winner's endpoints
-  const uint32_t bits = P2[st.pid];
-#pragma unroll 1
-  for (int s = 0; s < 2; ++s) {
-    const uint32_t mask = s ? (bits & 0xFFFFu) : (~bits & 0xFFFFu);
-    const u64 nib = nibble_mask(mask);
-    Subset1 best = s ? st.s[1] : st.s[0];
-    float d0[3], d1[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      d0[c] = (float)expand7(best.q0[c], best.pb);
-      d1[c] = (float)expand7(best.q1[c], best.pb);
-    }
-    const u64 base = st.idx;
-    u64 best_idx = base & nib;
-    int mn, mx;
-    index_extremes(base, mask, mn, mx);
-#pragma unroll 1
-    for (int v = 0; v < nvar; ++v) {
-      u64 src;
-      if (!selector_variant(base, mask, v, q, 7, mn, mx, src)) continue;
-      float e0[3], e1[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        e0[c] = d0[c];
-        e1[c] = d1[c];
-      }
-      lsq_refit<3, 3>(xs, src, mask, e0, e1);
-      Subset1 cand;
-      u64 idx;
-      quant1_subset(xs, perc, mask, e0, e1, cand, idx);
-      if (cand.err < best.err) {
-        best = cand;
-        best_idx = idx;
-      }
-    }
-    st.idx = (base & ~nib) | best_idx;
-    if (s == 0)
-      st.s[0] = best;
-    else
-      st.s[1] = best;
-  }
-  st.err = st.s[0].err + st.s[1].err;
-}
-
-__device__ __forceinline__ Bits128 pack_mode1(const State1& st) {
+__device__ __forceinline__ Bits128 pack_mode1(const Chain<2>& st) {
   const int anchor = ANCHOR2[st.pid];
   const u64 nib1 = nibble_mask(P2[st.pid] & 0xFFFFu);       // subset 1's fields
-  u64 idx = st.idx;
+  u64 idx = st.idx[0] | st.idx[1];
   // subset-0 fix-up (anchor pixel 0), then subset 1's (anchor pixel of the shape)
   const bool need0 = (get4(idx, 0) & 4) != 0;
   if (need0) idx ^= 0x7777777777777777ull & ~nib1;          // 7 - i
@@ -663,14 +382,14 @@ __device__ __forceinline__ Bits128 pack_mode1(const State1& st) {
   int pos = 8;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    put(b, need0 ? st.s[0].q1[c] : st.s[0].q0[c], pos, 6);
-    put(b, need0 ? st.s[0].q0[c] : st.s[0].q1[c], pos + 6, 6);
-    put(b, need1 ? st.s[1].q1[c] : st.s[1].q0[c], pos + 12, 6);
-    put(b, need1 ? st.s[1].q0[c] : st.s[1].q1[c], pos + 18, 6);
+    put(b, getq(need0 ? st.s[0].q1 : st.s[0].q0, c), pos, 6);
+    put(b, getq(need0 ? st.s[0].q0 : st.s[0].q1, c), pos + 6, 6);
+    put(b, getq(need1 ? st.s[1].q1 : st.s[1].q0, c), pos + 12, 6);
+    put(b, getq(need1 ? st.s[1].q0 : st.s[1].q1, c), pos + 18, 6);
     pos += 24;
   }
-  put(b, st.s[0].pb, 80, 1);
-  put(b, st.s[1].pb, 81, 1);
+  put(b, st.s[0].p0, 80, 1);
+  put(b, st.s[1].p0, 81, 1);
   // pixel 0 and the anchor pixel store one index bit fewer
   pos = 82;
 #pragma unroll
@@ -682,25 +401,137 @@ __device__ __forceinline__ Bits128 pack_mode1(const State1& st) {
   return b;
 }
 
-// ---- one block: mode 6, and for an opaque block mode 1 raced against it.
-// xs: the block scaled to 0..255; raw: per-channel sums of the unscaled RGB.
-__device__ __forceinline__ void fast_search(const float (&xs)[4][16], const float (&raw)[3],
-                                            const int* __restrict__ ids, int nids, bool perc,
-                                            int uber, Bits128& out, float& err) {
-  float amin = xs[3][0];
+// ---- one block on the group's shared struct: x the (N,16,4) blocks in [0,1],
+// ids the (N,nids) shortlist. A block with any alpha below 255 (scaled) takes
+// mode 6, which runs alone; an opaque one races mode 1 against it.
+template <int L, bool PERC, class Run>
+__device__ __forceinline__ void fast_block(FastShared<L>& sh, const float* __restrict__ x,
+                                           int64_t i, const int* __restrict__ ids, int nids,
+                                           int uber, uint4* __restrict__ words,
+                                           float* __restrict__ err, Run&& run) {
+  constexpr int SLOTS = FastShape<L>::SLOTS, KC = SLOTS / 2;
+  const float* xb = x + i * 64;
+  run([&](int lane) {
+#pragma unroll 1
+    for (int p = lane; p < 16; p += L) {
+      const float4 v = reinterpret_cast<const float4*>(xb)[p];
+      sh.xs[0][p] = v.x * 255.0f;
+      sh.xs[1][p] = v.y * 255.0f;
+      sh.xs[2][p] = v.z * 255.0f;
+      sh.xs[3][p] = v.w * 255.0f;
+    }
+  });
+  float amin = sh.xs[3][0];
 #pragma unroll
-  for (int p = 1; p < 16; ++p) amin = fminf(amin, xs[3][p]);
-  State6 st6;
-  mode6(xs, perc, uber, st6);
-  out = pack_mode6(st6);
-  err = st6.err;
-  if (amin < 254.999f) return;       // a block with alpha takes mode 6
-  State1 st1;
-  mode1(xs, perc, uber, raw, ids, nids, st1);
-  if (st1.err < st6.err) {
-    out = pack_mode1(st1);
-    err = st1.err;
+  for (int p = 1; p < 16; ++p) amin = fminf(amin, sh.xs[3][p]);
+  const bool opaque = !(amin < 254.999f);
+  const int* bid = ids + i * nids;
+  const int np = opaque ? nids : 0;
+  int q;
+  const int nvar = variant_slots(uber, q);
+
+  // a and b, a chunk of KC partitions at a time; the first chunk also runs
+  // mode 6's step 0 and the single-colour candidate, its scan phase mode 6's
+  // step 1
+#pragma unroll 1
+  for (int k0 = 0; k0 == 0 || k0 < np; k0 += KC) {
+    const int nk = min(KC, np - k0);
+    const int nt = 2 * nk + (k0 ? 0 : (opaque ? 2 : 1));
+    run([&](int lane) {
+#pragma unroll 1
+      for (int t = lane; t < nt; t += L) {
+        if (t < 2 * nk)
+          part_item<PERC>(sh.xs, bid[k0 + t / 2], t % 2, sh.slot[t]);
+        else if (t == 2 * nk)
+          mode6_fit<L, PERC>(sh);
+        else
+          solid_item<L, PERC>(sh, xb);
+      }
+    });
+    run([&](int lane) {
+      if (k0 == 0 && lane == 0) mode6_refit<L, PERC>(sh, nvar);
+      if (nk > 0 && lane == (L > 1 ? 1 : 0))
+        mode1_scan<L>(sh, bid, k0, nk, k0 + KC >= np, nvar);
+    });
   }
+
+  // c and d: uber, groups 0 (mode 6) and, opaque, 1 and 2 (mode 1's subsets),
+  // each group's variants side by side, in chunks of SLOTS
+  if (nvar) {
+    const int ng = opaque ? 3 : 1, total = ng * nvar;
+#pragma unroll 1
+    for (int t0 = 0; t0 < total; t0 += SLOTS) {
+      const int nt = min(SLOTS, total - t0);
+      run([&](int lane) {
+#pragma unroll 1
+        for (int t = lane; t < nt; t += L)
+          uber_item<L, PERC>(sh, (t0 + t) / nvar, (t0 + t) % nvar, q, sh.slot[t]);
+      });
+      run([&](int lane) {
+#pragma unroll 1
+        for (int g = lane; g < ng; g += L) {
+          if (g == 0)
+            uber_pick(sh.slot, t0, nt, 0, nvar, sh.s6, sh.idx6);
+          else
+            uber_pick(sh.slot, t0, nt, g, nvar, sh.st1.s[g - 1], sh.st1.idx[g - 1]);
+        }
+      });
+    }
+  }
+
+  // e: mode 1's error over its subsets in order, the race (mode 6 keeps a
+  // tie), the pack
+  run([&](int lane) {
+    if (lane != 0) return;
+    Bits128 out = pack_mode6(sh.s6, sh.idx6);
+    float e = sh.s6.err;
+    if (opaque) {
+      const float e1 = sh.st1.s[0].err + sh.st1.s[1].err;
+      if (e1 < e) {
+        out = pack_mode1(sh.st1);
+        e = e1;
+      }
+    }
+    words[i] = make_uint4((uint32_t)out.lo, (uint32_t)(out.lo >> 32), (uint32_t)out.hi,
+                          (uint32_t)(out.hi >> 32));
+    err[i] = e;
+  });
 }
+
+#ifdef __CUDACC__
+// The kernel and its launcher; the host build of this header for the tests
+// stops before them. Group `grp` of the CTA encodes block
+// blockIdx.x * BLOCKS + grp; its phases run through GroupRun.
+template <int L, bool PERC>
+__global__ void __launch_bounds__(FastShape<L>::THREADS, FastShape<L>::MIN_CTAS)
+bc7_fast_kernel(const float* __restrict__ x, int64_t n, const int* __restrict__ ids, int nids,
+                int uber, uint4* __restrict__ words, float* __restrict__ err) {
+  constexpr int B = FastShape<L>::BLOCKS;
+  __shared__ FastShared<L> sh[B];
+  const int grp = threadIdx.x / L;
+  const int64_t i = (int64_t)blockIdx.x * B + grp;
+  if (i >= n) return;
+  fast_block<L, PERC>(sh[grp], x, i, ids, nids, uber, words, err,
+                      GroupRun<L>(grp, threadIdx.x % L));
+}
+
+// Launches the kernel with L lanes per block on `stream`; returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments it does not take.
+template <int L>
+inline int launch_fast(const float* x, long long n, const int* ids, int nids, int perceptual,
+                       int uber, uint32_t* words, float* err, void* stream) {
+  if (int rc = bcx::check_args(x, 4)) return rc;
+  if (nids < 1 || uber < 0) return (int)cudaErrorInvalidValue;
+  constexpr int B = FastShape<L>::BLOCKS, T = FastShape<L>::THREADS;
+  const unsigned grid = (unsigned)((n + B - 1) / B);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint4* w = reinterpret_cast<uint4*>(words);
+  if (perceptual)
+    bc7_fast_kernel<L, true><<<grid, T, 0, s>>>(x, n, ids, nids, uber, w, err);
+  else
+    bc7_fast_kernel<L, false><<<grid, T, 0, s>>>(x, n, ids, nids, uber, w, err);
+  return (int)cudaGetLastError();
+}
+#endif  // __CUDACC__
 
 }  // namespace bc7

@@ -41,10 +41,11 @@
 // round channel c's steps read and write only channel c's codes at the
 // round's fixed indices and p-bits; only the re-race after them changes the
 // p-bits and the indices.
-// Masked passes visit the set bits of the subset's mask in ascending pixel
-// order, so a 3-subset pass costs its subset's pixels, not 16 predicated
-// slots; a shake item's K steps share one pass over the pixels and the
-// round's weights (kept per pixel, written by the re-race's exact assign).
+// Masked passes (fit_sub, refit_sub, assign_sub, sel_variant: bc7_group.cuh,
+// shared with the fast search) visit the set bits of the subset's mask in
+// ascending pixel order, so a 3-subset pass costs its subset's pixels, not 16
+// predicated slots; a shake item's K steps share one pass over the pixels and
+// the round's weights (kept per pixel, written by the re-race's exact assign).
 // Items are dealt so that neighbouring lanes work on the same group (same
 // trip counts) and, in the dual modes, the same code path.
 //
@@ -54,9 +55,9 @@
 // keeps, and a block reads only 256 bytes.
 //
 // A phase is written as a function of the lane over the group's shared
-// struct, handed to `run`: the kernel runs it on each lane and then the
-// group's barrier (__syncwarp on the group's lanes); the host build of the
-// tests runs it as a loop over the lanes. Control flow between phases depends
+// struct, handed to `run`: the kernel's runner (GroupRun, bc7_group.cuh) runs
+// it on each lane and then the group's barrier (__syncwarp on the group's
+// lanes); the host build of the tests runs it as a loop over the lanes. Control flow between phases depends
 // only on launch arguments and on shared values read after a barrier, so it is
 // the same on every lane.
 //
@@ -65,7 +66,7 @@
 // constants rounded once to float, rintf for half-to-even, no multiply-add
 // contraction (build flag).
 #pragma once
-#include "bc7_fast_search.cuh"
+#include "bc7_group.cuh"
 
 namespace bc7 {
 
@@ -120,12 +121,6 @@ template <> struct Mode<7> { enum { S = 2, NC = 4, CB = 5, AB = 5, PB = 2, IB = 
 
 constexpr float BIG = 3.4e38f;
 
-// endpoint codes, 8 bits per channel in one word
-__device__ __forceinline__ int getq(uint32_t q, int c) { return (int)((q >> (8 * c)) & 255u); }
-__device__ __forceinline__ void setq(uint32_t& q, int c, int v) {
-  q = (q & ~(255u << (8 * c))) | ((uint32_t)v << (8 * c));
-}
-
 // every index field of a 64-bit index word set to `v`
 __device__ __forceinline__ u64 all_fields(int v) { return 0x1111111111111111ull * (u64)v; }
 
@@ -166,29 +161,7 @@ __device__ __forceinline__ int combo_p1(int cb) {
   return PB == 2 ? cb & 1 : cb;
 }
 
-// ---- the in-order scans that pick a phase's winners
-
-// A strict-< scan of candidates 0..n-1 against an incumbent error `inc`: a
-// candidate with ok(t) false is skipped, the incumbent and then the earlier
-// candidate keep ties. Returns the winning candidate, or -1 where the
-// incumbent stays; `inc` ends as the winner's error.
-template <class Err, class Ok>
-__device__ __forceinline__ int scan_min(float& inc, int n, Err err, Ok ok) {
-  int w = -1;
-  for (int t = 0; t < n; ++t) {
-    const float e = err(t);
-    if (ok(t) && e < inc) {
-      inc = e;
-      w = t;
-    }
-  }
-  return w;
-}
-
-template <class Err>
-__device__ __forceinline__ int scan_min(float& inc, int n, Err err) {
-  return scan_min(inc, n, err, [](int) { return true; });
-}
+// ---- the keep-2 scan (the strict-< scan, scan_min, is bc7_group.cuh's)
 
 // One step of the keep-2 scan: candidate error `ce` against the best `be`
 // and the runner-up `b2e` (`have2`: there is one). Bit 0: the candidate
@@ -201,200 +174,6 @@ __device__ __forceinline__ int keep2_step(float ce, float be, float b2e, bool ha
   const float le = take ? be : ce;
   return (take ? 1 : 0) | ((!have2 || le < b2e) ? 2 : 0);
 }
-
-// ---- masked passes over the subset's pixels, ascending. These are K5's
-// copies of the fast search's fit_line, lsq_refit and assign_exact (RGB
-// metric): the same arithmetic in the same order, with pixels read from
-// shared memory by their index instead of unrolled over 16 predicated slots.
-// FULL: the mask is all 16 pixels, known at compile time (the one-subset
-// modes); the pass is then a counted loop, kept rolled: unrolled 2, 4, 8 or
-// 16 times, the dual modes' kernels run 1.2-2.2 times slower on the H100
-// (code size; PERF.md).
-template <bool FULL, class F>
-__device__ __forceinline__ void for_pixels(uint32_t mask, F&& f) {
-  if constexpr (FULL) {
-#pragma unroll 1
-    for (int p = 0; p < 16; ++p) f(p);
-  } else {
-    for (uint32_t m = mask; m; m &= m - 1) f(__ffs(m) - 1);
-  }
-}
-
-// least-squares endpoints for fixed indices; e0/e1 come in as the fallback
-// and stay where the system is singular
-template <int NC, int IB, bool FULL, class X>
-__device__ __forceinline__ void refit_sub(const X& xs, u64 idx, uint32_t mask,
-                                          float (&e0)[NC], float (&e1)[NC]) {
-  float q00 = 0.0f, q01 = 0.0f, q11 = 0.0f;
-  float b0[NC], b1[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) b0[c] = b1[c] = 0.0f;
-  for_pixels<FULL>(mask, [&](int p) {
-    const float a = level<IB>(get4(idx, p));
-    const float one_a = 1.0f - a;
-    q00 = q00 + one_a * (1.0f - a);
-    q01 = q01 + one_a * a;
-    q11 = q11 + a * a;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      b0[c] = b0[c] + one_a * xs[c][p];
-      b1[c] = b1[c] + a * xs[c][p];
-    }
-  });
-  const float det = q00 * q11 - q01 * q01;
-  const bool ok = fabsf(det) > 1e-6f;
-  const float inv = 1.0f / (ok ? det : 1.0f);
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const float n0 = (q11 * b0[c] - q01 * b1[c]) * inv;
-    const float n1 = (q00 * b1[c] - q01 * b0[c]) * inv;
-    e0[c] = ok ? n0 : e0[c];
-    e1[c] = ok ? n1 : e1[c];
-  }
-}
-
-// PCA + least-squares line fit over the pixels of `mask`, `iters` rounds
-template <int NC, int IB, bool FULL, class X>
-__device__ __forceinline__ void fit_sub(const X& xs, uint32_t mask, int iters,
-                                        float (&e0)[NC], float (&e1)[NC]) {
-  const float cnt = fmaxf((float)__popc(mask), 1.0f);
-  float mean[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) mean[c] = 0.0f;
-  for_pixels<FULL>(mask, [&](int p) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) mean[c] = mean[c] + xs[c][p];
-  });
-#pragma unroll
-  for (int c = 0; c < NC; ++c) mean[c] = mean[c] / cnt;
-  float cov[NC][NC];
-#pragma unroll
-  for (int a = 0; a < NC; ++a)
-#pragma unroll
-    for (int b = a; b < NC; ++b) cov[a][b] = 0.0f;
-  for_pixels<FULL>(mask, [&](int p) {
-    float d[NC];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) d[c] = xs[c][p] - mean[c];
-#pragma unroll
-    for (int a = 0; a < NC; ++a)
-#pragma unroll
-      for (int b = a; b < NC; ++b) cov[a][b] = cov[a][b] + d[a] * d[b];
-  });
-#pragma unroll
-  for (int a = 0; a < NC; ++a)
-#pragma unroll
-    for (int b = 0; b < a; ++b) cov[a][b] = cov[b][a];
-  float axis[NC];
-  principal_axis<NC>(cov, NC == 4 ? 0.5f : 0.57735026f, axis);
-  float tmin = 1e30f, tmax = -1e30f;
-  for_pixels<FULL>(mask, [&](int p) {
-    float t = 0.0f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) t = t + (xs[c][p] - mean[c]) * axis[c];
-    tmin = fminf(tmin, t);
-    tmax = fmaxf(tmax, t);
-  });
-  tmin = tmin > tmax ? 0.0f : tmin;
-  tmax = tmax < tmin ? 0.0f : tmax;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    e0[c] = mean[c] + tmin * axis[c];
-    e1[c] = mean[c] + tmax * axis[c];
-  }
-#pragma unroll 1
-  for (int it = 0; it < iters; ++it) {
-    Proj<NC> pr;
-    make_proj<NC>(e0, e1, false, false, pr);
-    u64 idx = 0;
-    for_pixels<FULL>(mask, [&](int p) {
-      float px[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) px[c] = xs[c][p];
-      idx |= (u64)proj_index<NC, IB>(pr, px) << (4 * p);
-    });
-    refit_sub<NC, IB, FULL>(xs, idx, mask, e0, e1);
-  }
-}
-
-// Exact palette assign of the pixels of `mask`, RGB(A) metric, channels
-// C0..C0+NC-1: the projection index, the distance to the entry it selects;
-// index fields outside the mask stay 0. w (unless null): the weight of the
-// entry each pixel of the mask selects, at the pixel's position.
-template <int NC, int C0, int IB, bool FULL, class X>
-__device__ __forceinline__ void assign_sub(const X& xs, const int (&d0)[NC],
-                                           const int (&d1)[NC], uint32_t mask, u64& idx,
-                                           float& err, uint8_t* w = nullptr) {
-  static_assert(C0 == 0 || (NC == 1 && C0 == 3), "a scalar assign reads the alpha row");
-  float p0[NC], p1[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    p0[c] = (float)d0[c];
-    p1[c] = (float)d1[c];
-  }
-  Proj<NC> pr;
-  make_proj<NC>(p0, p1, false, true, pr);
-  u64 acc = 0;
-  float e = 0.0f;
-  for_pixels<FULL>(mask, [&](int p) {
-    float px[NC];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) px[c] = xs[C0 + c][p];
-    const int i = proj_index<NC, IB>(pr, px);
-    const int wk = weight<IB>(i);
-    float d = 0.0f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const float diff = px[c] - (float)lerp64(d0[c], d1[c], wk);
-      d = d + diff * diff;
-    }
-    acc |= (u64)i << (4 * p);
-    e = e + d;
-    if (w) w[p] = (uint8_t)wk;
-  });
-  idx = acc;
-  err = e;
-}
-
-// K5's copy of the fast search's selector_variant, over the pixels of the
-// mask only: v < 3 the +-1 perturbations of the extreme selectors, v >= 3 the
-// selector-scaling extrapolations in (ly, hy) order; false for the identity
-// (0, max_sel), which is not a variant.
-template <bool FULL>
-__device__ __forceinline__ bool sel_variant(u64 base, uint32_t mask, int v, int q, int max_sel,
-                                            int mn, int mx, u64& out) {
-  u64 acc = 0;
-  if (v < 3) {
-    for_pixels<FULL>(mask, [&](int p) {
-      const int r = get4(base, p);
-      const bool up = r == mn && r < max_sel;
-      const bool dn = r == mx && r > 0;
-      const int o = v == 0 ? (up ? r + 1 : r) : (v == 1 ? (dn ? r - 1 : r) : (up ? r + 1 : (dn ? r - 1 : r)));
-      acc |= (u64)o << (4 * p);
-    });
-    out = acc;
-    return true;
-  }
-  const int span = q + 2;
-  const int ly = -q + (v - 3) / span;
-  const int hy = max_sel - 1 + (v - 3) % span;
-  if (ly == 0 && hy == max_sel) return false;
-  const float fms = (float)max_sel, fly = (float)ly, fden = (float)(hy - ly);
-  for_pixels<FULL>(mask, [&](int p) {
-    const float r = (float)get4(base, p);
-    const float s = floorf(fms * (r - fly) / fden + 0.5f);
-    acc |= (u64)(int)fminf(fmaxf(s, 0.0f), fms) << (4 * p);
-  });
-  out = acc;
-  return true;
-}
-
-// ---- endpoints and indices of one subset
-struct Sub {
-  float err;
-  uint32_t q0, q1;  // codes per channel
-  int p0, p1;       // p-bits (0 without)
-};
 
 // Quantise one subset's float endpoints against the exact palette. Without
 // p-bits: plain codes, one assign. With p-bits: the combinations raced by the
@@ -482,19 +261,6 @@ __device__ __forceinline__ void quant_subset(const X& xs, uint32_t mask,
 }
 
 // ---- shared state of a group
-struct Slot {      // one uber candidate's result
-  Sub s;
-  u64 idx;         // the subset's index fields only
-  int ok;          // 0: a skipped variant
-};
-
-struct Entry {     // a refinement group (a chain's subset, or a channel group)
-  Sub s;           // its state at the entry of the uber phase
-  u64 base;        // its index fields there
-  uint32_t mask;
-  int mn, mx;      // smallest and largest index there
-};
-
 struct Rerace {    // one p-bit combination of a group's re-race
   float err;
   u64 idx;
@@ -518,23 +284,6 @@ __device__ __forceinline__ void uber_item(const float (&xs)[4][16], const Entry&
   }
   refit_sub<NC, IB, FULL>(xs, src, e.mask, e0, e1);
   quant_subset<NC, CB, PB, IB, FULL>(xs, e.mask, e0, e1, race, out.s, out.idx);
-}
-
-// The uber scan of group g over a chunk of slots: the group's items are the
-// contiguous run [g * nvar, (g + 1) * nvar) of the phase, this chunk holds
-// [t0, t0 + nt). Strict < against the group's running state (the entry
-// first), skipped variants passed over.
-__device__ __forceinline__ void uber_pick(const Slot* slot, int t0, int nt, int g, int nvar,
-                                          Sub& st, u64& idx) {
-  const int lo = max(g * nvar, t0) - t0, hi = min((g + 1) * nvar, t0 + nt) - t0;
-  const Slot* sl = slot + lo;
-  float inc = st.err;
-  const int w = scan_min(inc, hi - lo, [&](int i) { return sl[i].s.err; },
-                         [&](int i) { return sl[i].ok != 0; });
-  if (w >= 0) {
-    st = sl[w].s;
-    idx = sl[w].idx;
-  }
 }
 
 // the endpoint step (da, db) of shake step j at range SR: j = 0 is the start
@@ -668,14 +417,6 @@ template <int S>
 __device__ __forceinline__ uint32_t subset_of(uint32_t bits, int s) {
   return S == 1 ? 0xFFFFu : subset_mask(bits, S, s);
 }
-
-template <int S>
-struct Chain {     // a partition's candidate: per subset its state and fields
-  float err;
-  int pid;
-  Sub s[S];
-  u64 idx[S];
-};
 
 template <int M>
 struct SharedS {
@@ -1489,25 +1230,20 @@ __device__ __forceinline__ void full_block(typename SharedOf<M, W>::type& sh,
 #ifdef __CUDACC__
 // The kernel and its launcher; the host build of this header for the tests
 // stops before them. Group `grp` of the CTA encodes block
-// blockIdx.x * BLOCKS + grp; its barrier is __syncwarp over its lanes (in the
-// narrow shape, a lane alone, nothing to wait for).
+// blockIdx.x * BLOCKS + grp; its phases run through GroupRun (in the narrow
+// shape, a lane alone, no barrier).
 template <int M, int W>
 __global__ void __launch_bounds__(Shape<M, W>::THREADS, Shape<M, W>::MIN_CTAS)
 bc7_full_kernel(const float* __restrict__ x, int64_t n, const int* __restrict__ ids, int nids,
                 int iters, int shake, int uber, int keep, const uint8_t* __restrict__ bar,
                 int merge, uint4* __restrict__ words, float* __restrict__ err) {
   constexpr int L = Shape<M, W>::LANES, B = Shape<M, W>::BLOCKS;
-  static_assert(32 % L == 0, "a group lies inside one warp");
   __shared__ typename SharedOf<M, W>::type sh[B];
-  const int grp = threadIdx.x / L, lane = threadIdx.x % L;
+  const int grp = threadIdx.x / L;
   const int64_t i = (int64_t)blockIdx.x * B + grp;
   if (i >= n) return;
-  const unsigned gmask = (unsigned)((1ull << L) - 1u) << (L * (grp % (32 / L)));
   full_block<M, W>(sh[grp], x, i, ids, nids, iters, shake, uber, keep, bar, merge, words, err,
-                   [&](auto&& f) {
-                     f(lane);
-                     if constexpr (L > 1) __syncwarp(gmask);
-                   });
+                   GroupRun<L>(grp, threadIdx.x % L));
 }
 
 template <int M, int W>

@@ -1,9 +1,10 @@
 // Shared by the kernel sources: launch shape, pixel loads, argument check.
 //
-// In the kernels that launch with THREADS and block_index (all but K1a,
-// the BC7 shortlist and the full BC7 search, where a group of lanes shares a
-// block: bc1_search.cuh, bc7_est.cuh, bc7_full_search.cuh), one thread
-// encodes one 4x4 block; 128 threads per CTA. A thread reads its
+// In the kernels that launch with THREADS and block_index (all but K1a, the
+// BC7 shortlist, the fast and the full BC7 search and BC6H, where a group of
+// lanes shares a block: bc1_search.cuh, bc7_est.cuh, bc7_fast_search.cuh,
+// bc7_full_search.cuh, bc6h_search.cuh), one thread encodes one 4x4 block;
+// 128 threads per CTA. A thread reads its
 // 16 pixels straight from the (N,16,C) tensor image_to_blocks() produced -
 // 16-byte loads for RGBA - rather than from a channel-major transpose: the
 // searches are bound by operations, not bytes, every byte of each cache line
@@ -19,6 +20,16 @@ constexpr int THREADS = 128;
 
 __device__ __forceinline__ int64_t block_index() {
   return (int64_t)blockIdx.x * THREADS + threadIdx.x;
+}
+
+// int -> float, exactly (float)v for |v| < 2^22: the integer added into the
+// mantissa of 1.5 * 2^23, then that constant subtracted. Two full-rate
+// instructions where a conversion issues at 16 per SM and clock on compute
+// capability 9.0 (a float add at 128: the CUDA programming guide's throughput
+// table); the searches convert in their pixel loops (palette entries, levels,
+// decoded values).
+__device__ __forceinline__ float i2f(int v) {
+  return __int_as_float(v + 0x4B400000) - 12582912.0f;
 }
 
 __device__ __forceinline__ int clamp_i(int v, int lo, int hi) {

@@ -36,9 +36,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 HEADERS = ("bcx_common.cuh", "bc1_search.cuh", "bc4_search.cuh",
-           "bc7_common.cuh", "bc7_est.cuh", "bc7_fast_search.cuh",
-           "bc7_full_search.cuh", "bc6h_layouts.cuh", "bc6h_search.cuh")
-_BC7_FULL = ("bcx_common.cuh", "bc7_common.cuh", "bc7_fast_search.cuh",
+           "bc7_common.cuh", "bc7_est.cuh", "bc7_group.cuh",
+           "bc7_fast_search.cuh", "bc7_full_search.cuh", "bc6h_layouts.cuh",
+           "bc6h_search.cuh")
+_BC7_FULL = ("bcx_common.cuh", "bc7_common.cuh", "bc7_group.cuh",
              "bc7_full_search.cuh")
 # library -> (source, headers it includes)
 SOURCES = {
@@ -49,12 +50,14 @@ SOURCES = {
     "bc7_est": ("bc7_est_kernel.cu",
                 ("bcx_common.cuh", "bc7_common.cuh", "bc7_est.cuh")),
     "bc7_fast": ("bc7_fast_kernel.cu",
-                 ("bcx_common.cuh", "bc7_common.cuh", "bc7_fast_search.cuh")),
+                 ("bcx_common.cuh", "bc7_common.cuh", "bc7_group.cuh",
+                  "bc7_fast_search.cuh")),
     "bc7_full_m02": ("bc7_full_m02_kernel.cu", _BC7_FULL),
     "bc7_full_m1367": ("bc7_full_m1367_kernel.cu", _BC7_FULL),
     "bc7_full_m45": ("bc7_full_m45_kernel.cu", _BC7_FULL),
     "bc6h": ("bc6h_kernel.cu", ("bcx_common.cuh", "bc7_common.cuh",
-                                "bc6h_layouts.cuh", "bc6h_search.cuh")),
+                                "bc7_group.cuh", "bc6h_layouts.cuh",
+                                "bc6h_search.cuh")),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

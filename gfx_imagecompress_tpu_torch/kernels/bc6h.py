@@ -53,6 +53,10 @@ from .bc7_fast import _lut
 
 # launches of the CUDA kernel made by the wrapper below
 LAUNCHES = {"bc6h": 0}
+# the kernel's launch shape (csrc/bc6h_search.cuh; a test holds the two
+# together): lanes per block, threads per CTA
+BC6H_LANES = 4
+BC6H_THREADS = 64
 
 LV3 = tuple(w / 64.0 for w in WEIGHTS3)
 LV4 = tuple(w / 64.0 for w in WEIGHTS4)

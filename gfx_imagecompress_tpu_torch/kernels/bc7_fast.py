@@ -50,6 +50,10 @@ from .bc7_est import _chain, div_scalar, estimate_topk, sqrt32
 
 # launches of the CUDA kernel made by the wrapper below
 LAUNCHES = {"bc7_fast": 0}
+# the kernel's launch shape (csrc/bc7_fast_search.cuh; a test holds the two
+# together): lanes per block, threads per CTA
+FAST_LANES = 2
+FAST_THREADS = 64
 
 # Partition filterbank for the fast budget: the most frequently winning
 # 2-subset shapes (the idea of bc7enc16's filterbank, richgel:139-149).

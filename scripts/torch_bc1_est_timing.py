@@ -1,12 +1,12 @@
 """Times the BC1 kernel (K1a), the BC3 and BC2 kernels (K1b, K1c, whose
 colour half shares K1a's per-candidate helpers) and the BC7 partition
-shortlist (K3) of this checkout against those of another copy of the port's ``csrc/`` (``--parent``,
-for example an earlier commit's ``gfx_imagecompress_tpu_torch/csrc`` unpacked
-with ``git archive``), on the same blocks, on one card, in turns.
+shortlist (K3) of this checkout against those of another copy of the port's
+``csrc/`` (``--parent``), on the same blocks, on one card, in turns
+(``torch_turns.py``: the build side by side, the turns, the comparison).
 
-Both sides are built here from their own sources with the port's nvcc flags
-(``bc1_kernel.cu``, ``bc23_kernels.cu`` and ``bc7_est_kernel.cu``, side by
-side) and called through their C functions: ``bc1_encode``, ``bc3_encode``
+Both sides are built from their own sources (``bc1_kernel.cu``,
+``bc23_kernels.cu`` and ``bc7_est_kernel.cu``) and called through their C
+functions: ``bc1_encode``, ``bc3_encode``
 and ``bc2_encode`` have one signature in both; this checkout's
 ``bc7_est_topk`` also takes the order in which the partitions are dealt to
 its lanes and a per-block bar; the parent's is taken to be the one-thread
@@ -42,31 +42,22 @@ that are not barred. Needs a CUDA device. From the root of the repo:
 """
 from __future__ import annotations
 
-import argparse
 import ctypes
-import json
-import subprocess
 import sys
-from pathlib import Path
 
-import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from torch_turns import (arguments, call, device, finish, function, in_turns,
+                         start_build)
+from chip_smoke import photo_rgba, queued_ms, with_alpha_field
+from gfx_imagecompress_tpu_torch.kernels import _build, bc1, bc7_est, bc7_full
+from gfx_imagecompress_tpu_torch.pipeline.blocks import image_to_blocks
 
-from chip_smoke import (photo_rgba, queued_ms,  # noqa: E402
-                        with_alpha_field)
-from gfx_imagecompress_tpu_torch.kernels import (  # noqa: E402
-    _build, bc1, bc7_est, bc7_full)
-from gfx_imagecompress_tpu_torch.pipeline.blocks import (  # noqa: E402
-    image_to_blocks)
-
-P, LL, I, F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-BC1_ARGS = (P, LL, I, P, P, F, F, F, I, I, I, I, F, I, I, P)
-BC3_ARGS = (P, LL, P, P, F, F, F, I, I, I, I, I, I, P)
-BC2_ARGS = (P, LL, P, P, F, F, F, I, I, I, P)
-EST_ARGS_PARENT = (P, LL, I, I, P, I, I, I, I, P, P)
-EST_ARGS = (P, LL, I, I, P, P, I, I, I, I, P, P, P)
+P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# bc7_est_topk of the one-thread K3, the parent's design: no deal order, no bar
+EST_ARGS_PARENT = (P, LL, I, I, P, I, I, I, I, P)
+SOURCES = {"bc1": "bc1_kernel.cu", "bc23": "bc23_kernels.cu",
+           "bc7_est": "bc7_est_kernel.cu"}
 
 THR = 128 / 255.0
 BC1_BUDGETS = {
@@ -93,32 +84,12 @@ EST_CONFIGS = {
 }
 
 
-def build(csrc: Path, out: Path, parent: bool) -> tuple:
-    """nvcc K1a, K1b/K1c and K3 under ``csrc`` into ``out``, side by side;
-    returns the C functions and the ptxas logs."""
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for lib, src in (("bc1", "bc1_kernel.cu"), ("bc23", "bc23_kernels.cu"),
-                     ("bc7_est", "bc7_est_kernel.cu")):
-        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
-               str(out / f"{lib}.so"), str(csrc / src)]
-        procs[lib] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True)
-    logs = {}
-    for lib, proc in procs.items():
-        logs[lib], _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {csrc}/{lib}:\n{logs[lib]}")
-    enc = ctypes.CDLL(str(out / "bc1.so")).bc1_encode
-    enc.argtypes, enc.restype = BC1_ARGS, I
-    bc23 = ctypes.CDLL(str(out / "bc23.so"))
-    bc3, bc2 = bc23.bc3_encode, bc23.bc2_encode
-    bc3.argtypes, bc3.restype = BC3_ARGS, I
-    bc2.argtypes, bc2.restype = BC2_ARGS, I
-    est = ctypes.CDLL(str(out / "bc7_est.so")).bc7_est_topk
-    est.argtypes, est.restype = (EST_ARGS_PARENT if parent else EST_ARGS), I
-    return {"bc1": enc, "bc3": bc3, "bc2": bc2, "est": est,
-            "parent": parent}, logs
+def bind(libs, parent: bool) -> dict:
+    fns = {k: function(libs, f"{k}_encode") for k in ("bc1", "bc3", "bc2")}
+    fns["est"] = function(libs, "bc7_est_topk",
+                          EST_ARGS_PARENT if parent else None)
+    fns["parent"] = parent
+    return fns
 
 
 def bc1_call(fns, x, kw, words, err):
@@ -127,44 +98,35 @@ def bc1_call(fns, x, kw, words, err):
              adaptive=False, b3d=False)
     k.update(kw)
     w = k["weights"]
-    rc = fns["bc1"](x.data_ptr(), x.shape[0], x.shape[2], words.data_ptr(),
-                    err.data_ptr(), w[0], w[1], w[2], k["iters"], k["passes"],
-                    int(k["allow_three"]), int(k["use_alpha"]),
-                    float(k["alpha_threshold"]) * 255.0, int(k["adaptive"]),
-                    int(k["b3d"]), torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"bc1_encode failed ({rc})")
+    call(fns["bc1"], x, x.shape[0], x.shape[2], words, err, w[0], w[1], w[2],
+         k["iters"], k["passes"], int(k["allow_three"]), int(k["use_alpha"]),
+         float(k["alpha_threshold"]) * 255.0, int(k["adaptive"]),
+         int(k["b3d"]))
 
 
 def bc23_call(fns, which, x, words, err):
     """K1b (``which`` "bc3") or K1c ("bc2") at the wrappers' defaults."""
     w = bc1.PERCEPTUAL_WEIGHTS
-    args = [x.data_ptr(), x.shape[0], words.data_ptr(), err.data_ptr(),
-            w[0], w[1], w[2], 3, 1, 0]
+    args = [x, x.shape[0], words, err, w[0], w[1], w[2], 3, 1, 0]
     if which == "bc3":
         args += [3, 2, 2]
-    rc = fns[which](*args, torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"{which}_encode failed ({rc})")
+    call(fns[which], *args)
 
 
 def est_call(fns, x, cfg, bar, ids):
     plist = cfg["plist"]
     pl = (ctypes.c_int * len(plist))(*plist)
-    args = [x.data_ptr(), x.shape[0], cfg["chans"], cfg["subsets"], pl]
+    args = [x, x.shape[0], cfg["chans"], cfg["subsets"], pl]
     if not fns["parent"]:
         args.append((ctypes.c_int * len(plist))(
             *bc7_est.deal_order(plist, cfg["subsets"])))
     args += [len(plist), cfg["levels"], cfg["k"],
              int(cfg.get("estimator") == "pca")]
     if not fns["parent"]:
-        args.append(None if bar is None else bar.data_ptr())
+        args.append(bar)
     elif bar is not None:
         raise ValueError("the parent's K3 takes no bar")
-    rc = fns["est"](*args, ids.data_ptr(),
-                    torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"bc7_est_topk failed ({rc})")
+    call(fns["est"], *args, ids)
 
 
 def blocks_of(img):
@@ -173,31 +135,20 @@ def blocks_of(img):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", required=True,
-                    help="the other copy of gfx_imagecompress_tpu_torch/csrc")
-    ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--out", default=None)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
+    args = arguments(__doc__).parse_args()
+    smi = device()
+    if smi is None:
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    root = Path(__file__).resolve().parent.parent
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
-    side = {"old": build(Path(args.parent).resolve(),
-                         root / "build" / "k1k3_old", True),
-            "new": build(_build.CSRC, root / "build" / "k1k3_new", False)}
+    waits = {"old": start_build(args.parent, "k1k3_old", SOURCES),
+             "new": start_build(_build.CSRC, "k1k3_new", SOURCES)}
+    side, resources = {}, {}
+    for s, wait in waits.items():
+        libs, resources[s] = wait()
+        side[s] = bind(libs, s == "old")
+    names = list(side)
     res = {"device": smi, "reps": args.reps, "order": "old new new old",
-           "bc1": {}, "bc23": {}, "est": {}}
-
-    def turns(measure, old=None, new=None):
-        out = {"old": [], "new": []}
-        for s in ("old", "new", "new", "old"):
-            out[s].append(measure(side[s][0], old if s == "old" else new))
-        return out
+           "resources": resources, "bc1": {}, "bc23": {}, "est": {}}
 
     ok = True
     big = photo_rgba(4096, 4096, seed=100)
@@ -213,7 +164,7 @@ def main() -> int:
          torch.empty((big_n,), dtype=torch.float32, device="cuda"))
     for _ in range(250):
         for s in side:
-            bc1_call(side[s][0], images["4096"][0], {}, *w)
+            bc1_call(side[s], images["4096"][0], {}, *w)
     torch.cuda.synchronize()
     for name, kw in {**BC1_BUDGETS, **BC1_PARTS}.items():
         for size, (opaque, alpha) in images.items():
@@ -225,7 +176,7 @@ def main() -> int:
                        torch.empty((n,), dtype=torch.float32, device="cuda"))
                    for s in side}
             for s in side:
-                bc1_call(side[s][0], x, kw, *out[s])
+                bc1_call(side[s], x, kw, *out[s])
             torch.cuda.synchronize()
             same = bool(torch.equal(out["old"][0], out["new"][0])
                         and torch.equal(out["old"][1], out["new"][1]))
@@ -234,8 +185,9 @@ def main() -> int:
                 else args.reps
             res["bc1"][f"{name}_{size}"] = {
                 "n_blocks": n, "equal": same,
-                "ms": turns(lambda f, _o, x=x, kw=kw, o=out["new"]: queued_ms(
-                    lambda: bc1_call(f, x, kw, *o), reps))}
+                "ms": in_turns(names, lambda s, x=x, kw=kw, o=out["new"]:
+                               queued_ms(lambda: bc1_call(side[s], x, kw, *o),
+                                         reps))}
 
     # chip_smoke.py's BC3 and BC2 images
     bc23_images = {"bc3": blocks_of(with_alpha_field(
@@ -250,16 +202,16 @@ def main() -> int:
                        torch.empty((n,), dtype=torch.float32, device="cuda"))
                    for s in side}
             for s in side:
-                bc23_call(side[s][0], which, x, *out[s])
+                bc23_call(side[s], which, x, *out[s])
             torch.cuda.synchronize()
             same = bool(torch.equal(out["old"][0], out["new"][0])
                         and torch.equal(out["old"][1], out["new"][1]))
             ok = ok and same
             res["bc23"][f"{which}_{size}"] = {
                 "n_blocks": n, "equal": same,
-                "ms": turns(lambda f, _o, x=x, which=which, o=out["new"]:
-                            queued_ms(lambda: bc23_call(f, which, x, *o),
-                                      args.reps))}
+                "ms": in_turns(names, lambda s, x=x, which=which, o=out["new"]:
+                               queued_ms(lambda: bc23_call(side[s], which, x,
+                                                           *o), args.reps))}
 
     photo = photo_rgba(1024, 1024, seed=110)
     est_images = {"1k": blocks_of(photo),
@@ -271,9 +223,9 @@ def main() -> int:
             bar = bc7_full._combined_alpha_bar(x, True, True)
             ids = {s: torch.empty((n, k), dtype=torch.int32, device="cuda")
                    for s in ("old", "new", "new_bar")}
-            est_call(side["old"][0], x, cfg, None, ids["old"])
-            est_call(side["new"][0], x, cfg, None, ids["new"])
-            est_call(side["new"][0], x, cfg, bar, ids["new_bar"])
+            est_call(side["old"], x, cfg, None, ids["old"])
+            est_call(side["new"], x, cfg, None, ids["new"])
+            est_call(side["new"], x, cfg, bar, ids["new_bar"])
             torch.cuda.synchronize()
             first = torch.tensor(cfg["plist"][:k], dtype=torch.int32,
                                  device="cuda")
@@ -285,20 +237,14 @@ def main() -> int:
             res["est"][f"{cname}_{iname}"] = {
                 "n_blocks": n, "barred_frac": bar.double().mean().item(),
                 "equal": same,
-                "ms": turns(lambda f, _b, x=x, cfg=cfg: queued_ms(
-                    lambda: est_call(f, x, cfg, None, o), args.reps)),
-                "ms_bar": turns(lambda f, b, x=x, cfg=cfg: queued_ms(
-                    lambda: est_call(f, x, cfg, b, o), args.reps),
-                    old=None, new=bar)}
-    res["ptxas"] = {s: side[s][1] for s in side}
-    print(smi, flush=True)
-    print(json.dumps({k: v for k, v in res.items() if k != "ptxas"}),
-          flush=True)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(res, indent=1))
-    return 0 if ok else 1
-
+                "ms": in_turns(names, lambda s, x=x, cfg=cfg: queued_ms(
+                    lambda: est_call(side[s], x, cfg, None, o), args.reps)),
+                "ms_bar": in_turns(names, lambda s, x=x, cfg=cfg, bar=bar:
+                                   queued_ms(lambda: est_call(
+                                       side[s], x, cfg,
+                                       None if s == "old" else bar, o),
+                                       args.reps))}
+    return finish(res, args.out, ok)
 
 if __name__ == "__main__":
     sys.exit(main())

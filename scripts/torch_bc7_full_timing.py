@@ -1,14 +1,15 @@
 """Times the full BC7 search (K5) of this checkout against the K5 of another
-checkout of the repo (``--parent``, for example an earlier commit unpacked
-with ``git archive``), on the same blocks, on one card, in turns.
+copy of the port's ``csrc/`` (``--parent``), on the same blocks, on one card,
+in turns (``torch_turns.py``: the build side by side, the turns, the
+comparison).
 
-Both K5s are built here from their own sources with the port's nvcc flags and
-called through their C functions (``bc7_full_m02``, ``bc7_full_m1367``,
-``bc7_full_m45``: the same signature in both). The shortlists come from this
-checkout's K3 and are the same for both. Each measurement is taken as old,
-new, new, old (the two readings of each side are reported), per budget tier
-of ``compress(DXBC7)``: the search budgets that ``bc7_full._plan`` gives for
-quality 1.0, 0.5 and 0.25 and for performance 0.3 (``TIERS``):
+Both K5s are built from their own sources and called through their C
+functions (``bc7_full_m02``, ``bc7_full_m1367``, ``bc7_full_m45``: the same
+signature in both). The shortlists come from this checkout's K3 and are the
+same for both. Each measurement is taken as old, new, new, old (the two
+readings of each side are reported), per budget tier of ``compress(DXBC7)``:
+the search budgets that ``bc7_full._plan`` gives for quality 1.0, 0.5 and
+0.25 and for performance 0.3 (``TIERS``):
 
 - ``path_1k``: the eight mode launches of one ``compress(DXBC7)`` chunk of the
   1024x1024 photo of ``chip_smoke.py`` (65,536 blocks), each iteration right
@@ -17,58 +18,35 @@ quality 1.0, 0.5 and 0.25 and for performance 0.3 (``TIERS``):
 - ``mode_1k``: each mode alone, back to back (what a ``mode_mask`` of one
   mode runs);
 - at quality 1.0 only, ``alone_1k``: the eight launches back to back on
-  shortlists computed once; and ``path_13x257``: the eight launches on the
-  260 blocks of the 13x257 photo, after their shortlists.
+  shortlists computed once; ``path_13x257``: the eight launches on the
+  260 blocks of the 13x257 photo, after their shortlists; and
+  ``compress_1k``: the whole ``compress(DXBC7)`` call on the 1024x1024 photo,
+  as ``chip_smoke.py`` times it (``time_ms``), with the port's launches routed
+  through each side's K3 and K5 in turn.
 
-Both K5s' words and errors are compared on the 1K blocks at every tier (they
-must be equal: each equals its plain version bit for bit). Needs a CUDA
-device. From the root of the repo:
+Both K5s' words and errors are compared on the 1K blocks at every tier, and
+the two ``compress()`` outputs (they must be equal: each equals its plain
+version bit for bit). Needs a CUDA device. From the root of the repo:
 
     python3 scripts/torch_bc7_full_timing.py --parent DIR [--out results.json]
 """
 from __future__ import annotations
 
-import argparse
-import ctypes
-import json
-import subprocess
 import sys
-from pathlib import Path
 
+import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-
-from chip_smoke import launch_ms, photo_rgba, time_ms  # noqa: E402
-from gfx_imagecompress_tpu_torch.kernels import (  # noqa: E402
-    _build, bc7_est, bc7_full)
-from gfx_imagecompress_tpu_torch.pipeline.blocks import (  # noqa: E402
-    image_to_blocks)
+from torch_turns import (arguments, blocks_differing, call, device, finish,
+                         function, in_turns, port_libraries, start_build)
+from chip_smoke import launch_ms, photo_rgba, time_ms
+import gfx_imagecompress_tpu_torch as gic
+from gfx_imagecompress_tpu_torch.kernels import _build, bc7_est, bc7_full
+from gfx_imagecompress_tpu_torch.pipeline.blocks import image_to_blocks
 
 LIBS = ("bc7_full_m02", "bc7_full_m1367", "bc7_full_m45")
-
-
-def build_k5(root: Path, out: Path) -> tuple:
-    """nvcc the three K5 sources under ``root`` into ``out``, side by side;
-    returns C function name -> ctypes function, and the ptxas logs."""
-    csrc = root / "gfx_imagecompress_tpu_torch" / "csrc"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for lib in LIBS:
-        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
-               str(out / f"{lib}.so"), str(csrc / f"{lib}_kernel.cu")]
-        procs[lib] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True)
-    fns, logs = {}, {}
-    for lib, proc in procs.items():
-        logs[lib], _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {root}/{lib}:\n{logs[lib]}")
-        fn = getattr(ctypes.CDLL(str(out / f"{lib}.so")), lib)
-        fn.argtypes = [*_build.FUNCTIONS[lib][1], ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[lib] = fn
-    return fns, logs
+# K3 and K5: what compress(DXBC7) launches
+SOURCES = {lib: _build.SOURCES[lib][0] for lib in ("bc7_est", *LIBS)}
 
 
 def launch(fns, x, mode, plan, bar, ids, merge, words, err):
@@ -78,14 +56,10 @@ def launch(fns, x, mode, plan, bar, ids, merge, words, err):
     if isinstance(ids, int):
         nids = ids
     elif ids is not None:
-        ids_p, nids = ids.data_ptr(), ids.shape[1]
-    rc = fns[bc7_full.MODE_FUNCTIONS[mode]](
-        x.data_ptr(), x.shape[0], mode, ids_p, nids, plan.iters, plan.shake,
-        plan.uber, plan.keep, bar.data_ptr() if mode >= 6 else None,
-        int(merge), words.data_ptr(), err.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"mode {mode}: launch failed ({rc})")
+        ids_p, nids = ids, ids.shape[1]
+    call(fns[bc7_full.MODE_FUNCTIONS[mode]], x, x.shape[0], mode, ids_p, nids,
+         plan.iters, plan.shake, plan.uber, plan.keep,
+         bar if mode >= 6 else None, int(merge), words, err)
 
 
 def outputs(x):
@@ -114,32 +88,21 @@ TIERS = {"q1": (1.0, 1.0), "q05": (0.5, 1.0), "q025": (0.25, 1.0),
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", required=True,
-                    help="root of the other checkout (the old K5)")
-    ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--out", default=None)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
+    args = arguments(__doc__).parse_args()
+    smi = device()
+    if smi is None:
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    root = Path(__file__).resolve().parent.parent
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
     _build.ensure_built()
-    side = {"old": build_k5(Path(args.parent).resolve(),
-                            root / "build" / "k5_old"),
-            "new": build_k5(root, root / "build" / "k5_new")}
+    waits = {"old": start_build(args.parent, "k5_old", SOURCES),
+             "new": start_build(_build.CSRC, "k5_new", SOURCES)}
+    libs, side, resources = {}, {}, {}
+    for s, wait in waits.items():
+        libs[s], resources[s] = wait()
+        side[s] = {lib: function(libs[s], lib) for lib in LIBS}
+    names = list(side)
     res = {"device": smi, "reps": args.reps, "order": "old new new old",
-           "tiers": {}}
-
-    def turns(measure):
-        out = {"old": [], "new": []}
-        for s in ("old", "new", "new", "old"):
-            out[s].append(measure(side[s][0]))
-        return out
+           "resources": resources, "tiers": {}}
 
     def setup(img, plan):
         cfgs = plan.shortlists
@@ -167,38 +130,47 @@ def main() -> int:
         plan = bc7_full._plan(quality, 0xFF, performance, None, None, None,
                               None)
         x, bar, shortlists, ids_of = setup(photo, plan)
-        wo, eo = searches(side["old"][0], x, plan, bar, ids_of)
-        wn, en = searches(side["new"][0], x, plan, bar, ids_of)
+        wo, eo = searches(side["old"], x, plan, bar, ids_of)
+        wn, en = searches(side["new"], x, plan, bar, ids_of)
         torch.cuda.synchronize()
         t = {"budget": [plan.iters, plan.shake, plan.uber, plan.keep],
              "n_blocks_1k": int(x.shape[0]),
              "words_equal_frac": (wo == wn).all(1).double().mean().item(),
              "errors_equal": bool(torch.equal(eo, en))}
         ok = ok and t["words_equal_frac"] == 1.0 and t["errors_equal"]
-        t["path_1k"] = turns(lambda f: launch_ms(
-            shortlists, lambda: searches(f, x, plan, bar, ids_of),
+        t["path_1k"] = in_turns(names, lambda s: launch_ms(
+            shortlists, lambda: searches(side[s], x, plan, bar, ids_of),
             args.reps))
-        t["mode_1k"] = {m: turns(lambda f, m=m: time_ms(
-            lambda: one_mode(f, x, plan, bar, ids_of, m), args.reps))
+        t["mode_1k"] = {m: in_turns(names, lambda s, m=m: time_ms(
+            lambda: one_mode(side[s], x, plan, bar, ids_of, m), args.reps))
             for m in plan.modes}
         if tier == "q1":
-            t["alone_1k"] = turns(lambda f: time_ms(
-                lambda: searches(f, x, plan, bar, ids_of), args.reps))
+            t["alone_1k"] = in_turns(names, lambda s: time_ms(
+                lambda: searches(side[s], x, plan, bar, ids_of), args.reps))
             xs, bars, shorts, ids_s = setup(photo_rgba(13, 257, seed=113),
                                             plan)
             t["n_blocks_13x257"] = int(xs.shape[0])
-            t["path_13x257"] = turns(lambda f: launch_ms(
-                shorts, lambda: searches(f, xs, plan, bars, ids_s),
+            t["path_13x257"] = in_turns(names, lambda s: launch_ms(
+                shorts, lambda: searches(side[s], xs, plan, bars, ids_s),
                 args.reps))
+            img = gic.Image.from_array(np.ascontiguousarray(photo[None]))
+            outs = {}
+            for s in names:
+                with port_libraries(libs[s]):
+                    outs[s] = (gic.compress(gic.CompressType.DXBC7, img)
+                               .blocks.reshape(-1, 4),)
+            torch.cuda.synchronize()
+            t["compress_1k_blocks_differing"] = blocks_differing(
+                outs["old"], outs["new"])
+            ok = ok and t["compress_1k_blocks_differing"] == 0
+
+            def compress_ms(s):
+                with port_libraries(libs[s]):
+                    return time_ms(lambda: gic.compress(
+                        gic.CompressType.DXBC7, img), args.reps)
+            t["compress_1k"] = in_turns(names, compress_ms)
         res["tiers"][tier] = t
-    res["ptxas"] = {s: side[s][1] for s in side}
-    print(smi, flush=True)
-    print(json.dumps({k: v for k, v in res.items() if k != "ptxas"}),
-          flush=True)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(res, indent=1))
-    return 0 if ok else 1
+    return finish(res, args.out, ok)
 
 
 if __name__ == "__main__":

@@ -76,15 +76,16 @@ def _mode_codes(words):
 
 # ------------------------------------------------- against the Pallas kernel ---
 
-@pytest.mark.parametrize("signed", [False, True], ids=["unsigned", "signed"])
-def test_plain_version_against_the_pallas_kernel(signed):
+def _against_the_pallas_kernel(signed, quality):
+    """The plain version and the Pallas kernel in interpret mode on the JAX
+    tests' 8x8 HDR image at ``tile=4``, held to the JAX package's bars."""
     img = hdr_image(8, 8, seed=71, signed=signed)
     b = np.array(image_to_blocks(jnp.asarray(img[None])), np.float32)
     wj, ej = jpallas.encode_bc6h_blocks_pallas(jnp.asarray(b), tile=4,
-                                               quality=0.3, signed=signed)
+                                               quality=quality, signed=signed)
     wj, ej = np.array(wj), np.array(ej)
     wt, et = bc6h.encode_bc6h_blocks(torch.from_numpy(b), signed=signed,
-                                     quality=0.3)
+                                     quality=quality)
     # the reported error is the decoded error
     np.testing.assert_allclose(et.numpy(), _decoded_error(b, wt, signed),
                                rtol=1e-4, atol=0.5)
@@ -94,9 +95,25 @@ def test_plain_version_against_the_pallas_kernel(signed):
     # identical words, and the mode fields
     same = (wt.numpy().view(np.uint32) == wj).all(axis=1)
     mode_same = _mode_codes(wt.numpy()) == _mode_codes(wj)
-    print(f"signed={signed}: {same.mean():.4f} of {same.size} blocks "
-          f"identical, {mode_same.mean():.4f} with the same mode field")
+    print(f"signed={signed} quality={quality}: {same.mean():.4f} of "
+          f"{same.size} blocks identical, {mode_same.mean():.4f} with the "
+          "same mode field")
     assert same.mean() >= 0.9
+
+
+@pytest.mark.parametrize("signed", [False, True], ids=["unsigned", "signed"])
+def test_plain_version_against_the_pallas_kernel(signed):
+    _against_the_pallas_kernel(signed, 0.3)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("signed", [False, True], ids=["unsigned", "signed"])
+def test_plain_version_against_the_pallas_kernel_with_the_shake(signed):
+    """Quality 1.0, the only tier with the shake (``_shake_best_rows``,
+    ``_shake_q_rows``): the plain version, which the CUDA kernel equals bit
+    for bit, against the Pallas kernel. Its interpret-mode compile is much
+    larger than quality 0.3's: run with RUN_SLOW=1."""
+    _against_the_pallas_kernel(signed, 1.0)
 
 
 def test_fallback_fixture_of_the_jax_package():

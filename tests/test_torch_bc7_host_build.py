@@ -4,9 +4,10 @@
 ``csrc/bc7_full_search.cuh`` are plain C++ apart from the CUDA keywords (the
 full search's kernel and launcher sit behind ``__CUDACC__``), so ``g++`` builds
 them against a small stub of ``cuda_runtime.h`` and a loop over blocks takes
-the place of the launch. The full search is written as phases of a group of
-lanes over a shared struct; here each phase runs as a loop over the lanes, so
-the host build runs the card's own phase and scan code. That
+the place of the launch. The shortlist, the fast search and the full search
+are written as phases of a group of lanes over a shared struct; here each
+phase runs as a loop over the lanes, so the host build runs the card's own
+phase and scan code. That
 puts the arithmetic of the kernels under test where there is no card: the same
 numpy blocks go through the host build and through the plain PyTorch versions,
 and the partition ids, the words and the errors must be equal on every block
@@ -40,6 +41,7 @@ STUB = r"""
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #define __device__
 #define __host__
 #define __global__
@@ -56,6 +58,11 @@ struct uint2 { unsigned x, y; };
 struct dim3s { unsigned x; };
 static dim3s blockIdx, threadIdx;
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline float __int_as_float(int v) {
+  float f;
+  std::memcpy(&f, &v, sizeof f);
+  return f;
+}
 using std::max;
 using std::min;
 enum { cudaErrorInvalidValue = 1, cudaErrorMisalignedAddress = 716 };
@@ -271,34 +278,51 @@ extern "C" int host_scan_min(float inc, const float* e, const int* ok, int n) {
                        [&](int t) { return ok[t] != 0; });
 }
 
-// the body of bc7_fast_kernel, one block after the other
-extern "C" void host_fast(const float* x, long long n, const int* ids,
-                          int nids, int perceptual, int uber,
-                          unsigned* words, float* err) {
-  for (long long i = 0; i < n; ++i) {
-    const float4* p4 = reinterpret_cast<const float4*>(x + i * 64);
-    float xs[4][16];
-    float raw[3];
-    for (int p = 0; p < 16; ++p) {
-      const float4 v = p4[p];
-      xs[0][p] = v.x * 255.0f;
-      xs[1][p] = v.y * 255.0f;
-      xs[2][p] = v.z * 255.0f;
-      xs[3][p] = v.w * 255.0f;
-      raw[0] = p ? raw[0] + v.x : v.x;
-      raw[1] = p ? raw[1] + v.y : v.y;
-      raw[2] = p ? raw[2] + v.z : v.z;
+// block i of the fast search's kernel in the shape of L lanes: each phase as
+// a loop over the lanes (both orders with g_orders); the group's struct is
+// filled with 0xFF bytes first, so a phase that reads what no earlier phase
+// of this block wrote reads NaNs and ids past the list
+template <int L, bool PERC>
+static void fast_shaped(const float* x, long long i, const int* ids, int nids,
+                        int uber, uint4* w, float* err) {
+  using Sh = bc7::FastShared<L>;
+  static Sh sh, before, down;
+  std::memset(&sh, 0xFF, sizeof(Sh));
+  bc7::fast_block<L, PERC>(sh, x, i, ids, nids, uber, w, err, [](auto&& f) {
+    if (g_orders) {
+      std::memcpy(&before, &sh, sizeof(Sh));
+      for (int lane = L - 1; lane >= 0; --lane) f(lane);
+      std::memcpy(&down, &sh, sizeof(Sh));
+      std::memcpy(&sh, &before, sizeof(Sh));
     }
-    bc7::Bits128 out;
-    float e;
-    bc7::fast_search(xs, raw, ids + i * nids, nids, perceptual != 0, uber,
-                     out, e);
-    words[4 * i] = (unsigned)out.lo;
-    words[4 * i + 1] = (unsigned)(out.lo >> 32);
-    words[4 * i + 2] = (unsigned)out.hi;
-    words[4 * i + 3] = (unsigned)(out.hi >> 32);
-    err[i] = e;
+    for (int lane = 0; lane < L; ++lane) f(lane);
+    if (g_orders && std::memcmp(&down, &sh, sizeof(Sh))) ++g_races;
+  });
+}
+
+// bc7_fast_encode's contract; with `orders`, every phase in both lane
+// orders. Returns the number of phases whose two orders left different
+// shared states.
+extern "C" long long host_fast(const float* x, long long n, const int* ids,
+                               int nids, int perceptual, int uber, int orders,
+                               unsigned* words, float* err) {
+  uint4* w = reinterpret_cast<uint4*>(words);
+  g_orders = orders;
+  g_races = 0;
+  for (long long i = 0; i < n; ++i) {
+    if (perceptual)
+      fast_shaped<bc7::FAST_LANES, true>(x, i, ids, nids, uber, w, err);
+    else
+      fast_shaped<bc7::FAST_LANES, false>(x, i, ids, nids, uber, w, err);
   }
+  g_orders = 0;
+  return g_races;
+}
+
+// the fast search's launch shape: lanes per block, threads per CTA
+extern "C" void host_fast_shape(int* out) {
+  out[0] = bc7::FAST_LANES;
+  out[1] = bc7::FastShape<bc7::FAST_LANES>::THREADS;
 }
 """
 
@@ -322,9 +346,11 @@ def host_lib(tmp_path_factory):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.host_est.argtypes = [p, ll, i, i, p, p, i, i, i, i, p, i, p]
     lib.host_est.restype = ll
-    lib.host_fast.argtypes = [p, ll, p, i, i, i, p, p]
+    lib.host_fast.argtypes = [p, ll, p, i, i, i, i, p, p]
+    lib.host_fast.restype = ll
+    lib.host_fast_shape.argtypes = [p]
+    lib.host_fast_shape.restype = None
     lib.host_full.argtypes = [p, ll, i, p, i, i, i, i, i, p, i, p, p]
-    lib.host_fast.restype = None
     lib.host_full.restype = None
     lib.host_full_orders.argtypes = lib.host_full.argtypes
     lib.host_full_orders.restype = ll
@@ -465,23 +491,60 @@ FAST_CASES = {
 }
 
 
-@pytest.mark.parametrize("name", list(FAST_CASES))
-def test_host_built_search_equals_plain_version(host_lib, name):
-    x = _blocks()
-    kw = FAST_CASES[name]
+def _host_fast(lib, x, kw, orders=False):
+    """bc7_fast's search through the host build, on the shortlist the host
+    build's K3 ranks for the budget; with ``orders`` every phase runs in both
+    lane orders and a phase whose two orders differ fails."""
     plist, topk, uber = bc7_fast._budget(kw.get("fast", False), None,
                                          kw.get("_topk"), kw.get("_uber"))
-    perceptual = kw.get("perceptual", True)
-    ids = _host_est(host_lib, x, 3, 2, plist, 8, topk)
+    ids = _host_est(lib, x, 3, 2, plist, 8, topk)
     words = np.zeros((x.shape[0], 4), np.uint32)
     err = np.zeros((x.shape[0],), np.float32)
-    host_lib.host_fast(x.ctypes.data, x.shape[0], ids.ctypes.data,
-                       ids.shape[1], int(perceptual), uber,
-                       words.ctypes.data, err.ctypes.data)
+    races = lib.host_fast(x.ctypes.data, x.shape[0], ids.ctypes.data,
+                          ids.shape[1], int(kw.get("perceptual", True)), uber,
+                          int(orders), words.ctypes.data, err.ctypes.data)
+    assert races == 0, f"{races} fast-search phases depend on their lane order"
+    return words, err
+
+
+def _equal_to_plain(x, kw, words, err):
     wp, ep = bc7_fast.encode_bc7_fast_blocks_plain(torch.from_numpy(x), **kw)
     same = (words == wp.numpy().view(np.uint32)).all(axis=1)
     assert same.all(), f"{(~same).sum()} of {same.size} blocks differ"
     np.testing.assert_array_equal(err, ep.numpy())
+
+
+@pytest.mark.parametrize("name", list(FAST_CASES))
+def test_host_built_search_equals_plain_version(host_lib, name):
+    x = _blocks()
+    kw = FAST_CASES[name]
+    words, err = _host_fast(host_lib, x, kw)
+    _equal_to_plain(x, kw, words, err)
+
+
+@pytest.mark.parametrize("name", ["default", "fast", "rgb_metric", "alpha"])
+def test_fast_search_phases_do_not_depend_on_lane_order(host_lib, name):
+    """Every phase of the fast search leaves the same shared state with its
+    lanes run in descending as in ascending order, and the words and errors
+    are the plain version's; ``alpha``: the default budget on blocks that all
+    carry alpha (mode 6 alone, the lanes leave after its phases)."""
+    x = _blocks()
+    if name == "alpha":
+        x[..., 3] *= np.float32(0.98)
+    kw = {} if name == "alpha" else FAST_CASES[name]
+    words, err = _host_fast(host_lib, x, kw, orders=True)
+    _equal_to_plain(x, kw, words, err)
+
+
+def test_fast_search_launch_shape_is_the_wrappers(host_lib):
+    """The header's launch shape (lanes per block, threads per CTA) is what
+    ``bc7_fast.FAST_LANES`` and ``bc7_fast.FAST_THREADS`` report, a group
+    lies inside one warp and has more than one lane."""
+    out = np.zeros(2, np.int32)
+    host_lib.host_fast_shape(out.ctypes.data)
+    lanes, threads = (int(v) for v in out)
+    assert (lanes, threads) == (bc7_fast.FAST_LANES, bc7_fast.FAST_THREADS)
+    assert 32 % lanes == 0 and threads % 32 == 0 and lanes > 1
 
 
 # -------------------------------------------------------- the full search ---

@@ -311,6 +311,42 @@ def test_bc6h_kernel_equals_plain_version(name):
     assert torch.equal(ek, ep)
 
 
+@pytest.mark.parametrize("n", [1, 3, 4097])
+@pytest.mark.parametrize("quality", [1.0, 0.3], ids=["q1", "q03"])
+def test_bc6h_kernel_at_block_counts_that_do_not_fill_a_cta(quality, n):
+    """K6 where the last CTA holds fewer blocks than it has groups: the
+    groups past the end return before their first phase and no group waits
+    for them. At the top tier (the shake) and at quality 0.3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for signed in (False, True):
+        x = torch.from_numpy(_hdr_blocks(4224, signed=signed)[:n]).cuda()
+        kw = dict(quality=quality, signed=signed)
+        wk, ek = bc6h.encode_bc6h_blocks(x, **kw)
+        torch.cuda.synchronize()
+        wp, ep = bc6h.encode_bc6h_blocks_plain(x, **kw)
+        assert torch.equal(wk, wp)
+        assert torch.equal(ek, ep)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4097])
+@pytest.mark.parametrize("budget", ["default", "fast"])
+def test_bc7_fast_kernel_at_block_counts_that_do_not_fill_a_cta(budget, n):
+    """K4 where the last CTA holds fewer blocks than it has groups, every
+    other block opaque (a block with alpha leaves after mode 6): at the
+    default budget and the fast one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.from_numpy(_blocks(4224)[:n]).cuda()
+    x[::2, :, 3] = 1.0
+    kw = {"fast": budget == "fast"}
+    wk, ek = bc7_fast.encode_bc7_fast_blocks(x, **kw)
+    torch.cuda.synchronize()
+    wp, ep = bc7_fast.encode_bc7_fast_blocks_plain(x, **kw)
+    assert torch.equal(wk, wp)
+    assert torch.equal(ek, ep)
+
+
 def test_bc6h_wrapper_raises_on_what_the_kernel_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
