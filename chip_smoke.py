@@ -850,8 +850,11 @@ def main() -> int:
                                   "alpha_threshold": thr}, 4096),
         ("bc2", "default", {}, n_mixed),
         ("bc2", "passes2", {"passes": 2}, n_mixed),
+        ("bc2", "adaptive", {"adaptive": True}, n_mixed),
         ("bc3", "default", {}, n_mixed),
         ("bc3", "passes2", {"passes": 2}, n_mixed),
+        ("bc3", "adaptive", {"adaptive": True}, n_mixed),
+        ("bc3", "alpha_r1", {"a_radius": 1, "a_rounds": 1}, n_mixed),
         ("bc4", "default", {}, n_mixed),
         ("bc5", "default", {}, n_mixed),
         ("bc7_fast", "default", {}, n_mixed),
@@ -1248,9 +1251,10 @@ def main() -> int:
                  192 + 20),
         "bc1": ("gfx_imagecompress_tpu_torch/csrc/bc1_kernel.cu",
                 "gfx_imagecompress_tpu/kernels/bc1_pallas.py:534", 268),
-        "bc2": ("gfx_imagecompress_tpu_torch/csrc/bc23_kernels.cu",
+        # the kernels sit in bc23_group.cuh; bc23_kernels.cu launches them
+        "bc2": ("gfx_imagecompress_tpu_torch/csrc/bc23_group.cuh",
                 "gfx_imagecompress_tpu/kernels/bc1_pallas.py:635", 276),
-        "bc3": ("gfx_imagecompress_tpu_torch/csrc/bc23_kernels.cu",
+        "bc3": ("gfx_imagecompress_tpu_torch/csrc/bc23_group.cuh",
                 "gfx_imagecompress_tpu/kernels/bc1_pallas.py:612", 276),
         "bc4": ("gfx_imagecompress_tpu_torch/csrc/bc45_kernels.cu",
                 "gfx_imagecompress_tpu/kernels/bc4_pallas.py:265", 76),
@@ -1521,6 +1525,19 @@ def main() -> int:
                         * bc1.BC1_LANES,
                         resources=[k for k in resources
                                    if k["lib"] == "bc1"])
+        if name in ("bc2", "bc3"):
+            # K1b: the colour half on K1a's 4-colour groups, each alpha
+            # family in a warp of its own, one thread per block and family;
+            # K1c: one thread per block
+            more = dict(resources=[k for k in resources
+                                   if k["lib"] == "bc23"
+                                   and k["kernel"].startswith(name)])
+            if name == "bc3":
+                more.update(lanes_per_block=bc1.BC1_LANES + 2,
+                            blocks_per_cta=bc1.BC1_CTA_BLOCKS,
+                            threads_per_cta=bc1.BC3_THREADS)
+            else:
+                more.update(lanes_per_block=1, threads_per_cta=128)
         if name == "bc7_fast":
             more = dict(lanes_per_block=bc7_fast.FAST_LANES,
                         threads_per_cta=bc7_fast.FAST_THREADS,

@@ -1,5 +1,6 @@
 // BC1 colour search for one 4x4 block: the per-candidate arithmetic, the
-// one-thread search of K1b/K1c and the lane-group search of K1a.
+// one-thread search of K1c and the lane-group search of K1a and of the colour
+// half of K1b.
 //
 // Replaces the Pallas body gfx_imagecompress_tpu/kernels/bc1_pallas.py:
 // _bc1_search (and _pca, _sweep1d, _iterate_lsq, _quant565, _refine,
@@ -21,14 +22,17 @@
 // cube_red_px, cube_px) only K1a runs.
 //
 // bc1_search: one thread encodes a block, the 4-colour mode alone, opaque,
-// with the refine, the 48 colour floats in its registers (K1b and K1c,
-// csrc/bc23_kernels.cu).
+// with the refine, the 48 colour floats in its registers (K1c,
+// csrc/bc23_group.cuh). On K1a's lane groups K1c read slower than this on
+// the H100 (PERF.md), so it kept this search.
 //
-// bc1_group_*: K1a (csrc/bc1_kernel.cu). A group of BC1_LANES lanes runs one
-// mode of one block, the two modes of a block in two different warps (their
-// code differs, so splitting them lane by lane would run both paths on every
-// lane); with allow_three off only the 4-colour mode runs. The block sits in
-// shared memory, read by both modes. The search is a sequence of phases; a
+// bc1_group_*: K1a (csrc/bc1_kernel.cu) and the colour half of K1b
+// (csrc/bc23_group.cuh: the 4-colour mode alone, opaque, the refine). A group
+// of BC1_LANES lanes runs one mode of one block, the two modes of a block in
+// two different warps (their code differs, so splitting them lane by lane
+// would run both paths on every lane); with allow_three off only the
+// 4-colour mode runs. The block sits in shared memory, read by both modes.
+// The search is a sequence of phases; a
 // phase is a function of the lane (and its private registers, Bc1Lane) handed
 // to `run`, which on the card runs it on every lane and then the warp's
 // __syncwarp (every group of a warp runs the same phases), and in the tests'
@@ -575,7 +579,7 @@ __device__ __forceinline__ bool bc1_use4(float err4, float uerr4, float err3, fl
   return tb_take(err4, uerr4, err3, uerr3) && !(a0_4 == a1_4) && !has_t;
 }
 
-// ---- the one-thread search (K1b, K1c): the 4-colour mode alone, opaque,
+// ---- the one-thread search (K1c): the 4-colour mode alone, opaque,
 // with the refine. The opaque helpers read no mask: `m` is a placeholder.
 
 // best, best_u: the weighted and unweighted error of the start q0/q1
@@ -677,7 +681,7 @@ __device__ __forceinline__ void bc1_search(const float (&xs)[3][16], const Bc1Bu
   bc1_order4(q0, q1, idx, a0, a1, pidx);
 }
 
-// ---- the lane-group search (K1a)
+// ---- the lane-group search (K1a, the colour half of K1b)
 
 constexpr int BC1_LANES = 2;                  // lanes per (block, mode)
 constexpr int BC1_HP = 16 / BC1_LANES;        // pixels per lane in the pixel phases
@@ -730,10 +734,12 @@ struct Bc1Lane {
 };
 
 // Loads block `px` (C floats per pixel, in [0,1]) scaled to 0..255 and its
-// mask, then the axis (lane 0) and the weights (lane 1).
+// mask, and, where a255 is given (BC3: C is 4), its alpha scaled to 0..255
+// into a255; then the axis (lane 0) and the weights (lane 1).
 template <bool MASKED, class Run>
 __device__ __forceinline__ void bc1_group_load(Bc1Block& b, const float* __restrict__ px, int C,
-                                               const Bc1Budget& bud, Run&& run) {
+                                               const Bc1Budget& bud, Run&& run,
+                                               float* a255 = nullptr) {
   run([&](int lane, Bc1Lane&) {
 #pragma unroll 1
     for (int p = lane; p < 16; p += BC1_LANES) {
@@ -748,6 +754,7 @@ __device__ __forceinline__ void bc1_group_load(Bc1Block& b, const float* __restr
 #pragma unroll
       for (int c = 0; c < 3; ++c) b.xs[c][p] = f[c] * 255.0f;
       b.m[p] = MASKED ? ((f[3] * 255.0f >= bud.athr255) ? 1.0f : 0.0f) : 1.0f;
+      if (a255 != nullptr) a255[p] = f[3] * 255.0f;
     }
   });
   run([&](int lane, Bc1Lane&) {

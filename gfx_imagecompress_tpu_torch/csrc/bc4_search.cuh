@@ -1,4 +1,4 @@
-// Scalar-ramp (BC4 / BC3-alpha / BC5) search for one 4x4 block, one thread.
+// Scalar-ramp (BC4 / BC3-alpha / BC5) search for one 4x4 block.
 //
 // Replaces the Pallas body gfx_imagecompress_tpu/kernels/bc4_pallas.py:
 // _bc4_search (and _fit_ramp, _sweep, _sorted_rows, _pack_dxt5 under it).
@@ -8,11 +8,17 @@
 // the 16 pixels left to right, so both agree bit for bit.
 //
 // Bound: operations. A block is 64 bytes in and 12 bytes out against a few
-// tens of thousands of f32/i32 operations, so the design keeps the 16 pixels
-// of a block in the registers of one thread for the whole search and writes
-// nothing but the packed words and the error. Invalid hill-climb candidates
-// (wrong endpoint order for the ramp family) are skipped per thread instead of
-// being computed and masked as the row-vector version must.
+// tens of thousands of f32/i32 operations, so the pixels of a block stay in
+// the registers of the thread that searches them and nothing but the packed
+// words and the error is written. Invalid hill-climb candidates (wrong
+// endpoint order for the ramp family) are skipped per thread instead of being
+// computed and masked as the row-vector version must.
+//
+// The search is two independent families, which meet only at the pick
+// (bc4_pick): the 8-point ramp (bc4_family8: fit, min/max race, hill climb)
+// and the 6-point ramp (bc4_family6: fit, sorting network, 9 trimmed seeds,
+// hill climb). bc4_search runs both on one thread (K2a, K2b); K1b runs each
+// in a warp of its own (csrc/bc23_group.cuh), which is why they are helpers.
 #pragma once
 #include "bcx_common.cuh"
 
@@ -59,25 +65,28 @@ __device__ __forceinline__ float bc4_assign_err(const float (&vals)[16], int a0,
   return sum;
 }
 
-// Nearest ramp entry of every pixel (first wins on equality), 3 bits each.
+// Nearest ramp entry of the value v (first wins on equality).
+__device__ __forceinline__ int bc4_nearest(float v, const float (&pal)[8]) {
+  float d = v - pal[0];
+  float best = d * d;
+  int bi = 0;
+#pragma unroll
+  for (int k = 1; k < 8; ++k) {
+    d = v - pal[k];
+    d = d * d;
+    if (d < best) { best = d; bi = k; }
+  }
+  return bi;
+}
+
+// Nearest ramp entry of every pixel, 3 bits each.
 template <bool EIGHT>
 __device__ __forceinline__ void bc4_assign_idx(const float (&vals)[16], int a0, int a1,
                                                int (&idx)[16]) {
   float pal[8];
   bc4_palette<EIGHT>(a0, a1, pal);
 #pragma unroll
-  for (int p = 0; p < 16; ++p) {
-    float d = vals[p] - pal[0];
-    float best = d * d;
-    int bi = 0;
-#pragma unroll
-    for (int k = 1; k < 8; ++k) {
-      d = vals[p] - pal[k];
-      d = d * d;
-      if (d < best) { best = d; bi = k; }
-    }
-    idx[p] = bi;
-  }
+  for (int p = 0; p < 16; ++p) idx[p] = bc4_nearest(vals[p], pal);
 }
 
 // Least-squares ramp fit: assign every pixel to its nearest interpolated
@@ -187,16 +196,13 @@ __device__ __forceinline__ void bc4_sort16(float (&r)[16]) {
   for (int i = 0; i < 63; ++i) cswap(r[PAIRS[i][0]], r[PAIRS[i][1]]);
 }
 
-// Full search for one channel. vals in 0..255. Returns the endpoints, the
-// 3-bit DXT5 indices and the squared error of the exact decode.
-__device__ __forceinline__ void bc4_search(const float (&vals)[16], int iters, int radius,
-                                           int rounds, int& a0, int& a1, int (&idx)[16],
-                                           float& err) {
+// The 8-point family (a0 > a1) whole on one thread: the fitted seed races
+// the min/max seed, then the hill climb. vals in 0..255.
+__device__ __forceinline__ void bc4_family8(const float (&vals)[16], int iters, int radius,
+                                            int rounds, int& a0, int& a1, float& err) {
   const float W8[8] = {0.0f, 1.0f, (float)(1.0 / 7.0), (float)(2.0 / 7.0),
                        (float)(3.0 / 7.0), (float)(4.0 / 7.0), (float)(5.0 / 7.0),
                        (float)(6.0 / 7.0)};
-  const float W6[8] = {0.0f, 1.0f, (float)(1.0 / 5.0), (float)(2.0 / 5.0),
-                       (float)(3.0 / 5.0), (float)(4.0 / 5.0), 0.0f, 0.0f};
   float fmin_ = vals[0], fmax_ = vals[0];
 #pragma unroll
   for (int p = 1; p < 16; ++p) {
@@ -205,8 +211,6 @@ __device__ __forceinline__ void bc4_search(const float (&vals)[16], int iters, i
   }
   const int vmin = round_u8(fmin_);
   const int vmax = round_u8(fmax_);
-
-  // 8-point family (a0 > a1): fitted seed races the min/max seed
   float e0, e1;
   bc4_fit_ramp<false, 8>(vals, W8, iters, e0, e1);
   const int hi = round_u8(fmaxf(e0, e1));
@@ -216,46 +220,68 @@ __device__ __forceinline__ void bc4_search(const float (&vals)[16], int iters, i
   const float e_fit = bc4_assign_err<true>(vals, hi8, lo);
   const float e_mm = bc4_assign_err<true>(vals, vmax8, vmin);
   const bool mm = e_mm < e_fit;
-  int a0_8, a1_8;
-  float err8;
-  bc4_sweep<true>(vals, mm ? vmax8 : hi8, mm ? vmin : lo, radius, rounds, a0_8, a1_8, err8);
+  bc4_sweep<true>(vals, mm ? vmax8 : hi8, mm ? vmin : lo, radius, rounds, a0, a1, err);
+}
 
-  // 6-point family (a0 <= a1): fitted seed races 9 trimmed-interval seeds
+// The 6-point family (a0 <= a1) whole on one thread: the fitted seed races 9
+// trimmed-interval seeds (the sorted values' 3 lowest against their 3
+// highest), then the hill climb. vals in 0..255.
+__device__ __forceinline__ void bc4_family6(const float (&vals)[16], int iters, int radius,
+                                            int rounds, int& a0, int& a1, float& err) {
+  const float W6[8] = {0.0f, 1.0f, (float)(1.0 / 5.0), (float)(2.0 / 5.0),
+                       (float)(3.0 / 5.0), (float)(4.0 / 5.0), 0.0f, 0.0f};
+  float e0, e1;
   bc4_fit_ramp<true, 6>(vals, W6, iters, e0, e1);
   int seed0 = round_u8(fminf(e0, e1));
   int seed1 = round_u8(fmaxf(e0, e1));
   float seed_e = bc4_assign_err<false>(vals, seed0, seed1);
-  {
-    float sv[16];
+  float sv[16];
 #pragma unroll
-    for (int p = 0; p < 16; ++p) sv[p] = vals[p];
-    bc4_sort16(sv);
-    int slo[3], shi[3];
+  for (int p = 0; p < 16; ++p) sv[p] = vals[p];
+  bc4_sort16(sv);
+  int slo[3], shi[3];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      slo[i] = round_u8(sv[i]);
-      shi[i] = round_u8(sv[15 - i]);
-    }
-#pragma unroll 1
-    for (int ij = 0; ij < 9; ++ij) {
-      const int i = ij / 3, j = ij - 3 * i;
-      const int s0 = (i == 0) ? slo[0] : (i == 1 ? slo[1] : slo[2]);
-      int s1 = (j == 0) ? shi[0] : (j == 1 ? shi[1] : shi[2]);
-      s1 = max(s1, s0);
-      const float e = bc4_assign_err<false>(vals, s0, s1);
-      if (e < seed_e) { seed0 = s0; seed1 = s1; seed_e = e; }
-    }
+  for (int i = 0; i < 3; ++i) {
+    slo[i] = round_u8(sv[i]);
+    shi[i] = round_u8(sv[15 - i]);
   }
-  int a0_6, a1_6;
-  float err6;
-  bc4_sweep<false>(vals, seed0, seed1, radius, rounds, a0_6, a1_6, err6);
+#pragma unroll 1
+  for (int ij = 0; ij < 9; ++ij) {
+    const int i = ij / 3, j = ij - 3 * i;
+    const int s0 = (i == 0) ? slo[0] : (i == 1 ? slo[1] : slo[2]);
+    int s1 = (j == 0) ? shi[0] : (j == 1 ? shi[1] : shi[2]);
+    s1 = max(s1, s0);
+    const float e = bc4_assign_err<false>(vals, s0, s1);
+    if (e < seed_e) { seed0 = s0; seed1 = s1; seed_e = e; }
+  }
+  bc4_sweep<false>(vals, seed0, seed1, radius, rounds, a0, a1, err);
+}
 
+// The pick between the families (the 8-point one keeps a tie) and the
+// winner's endpoints and error.
+__device__ __forceinline__ bool bc4_pick(int a0_8, int a1_8, float err8, int a0_6, int a1_6,
+                                         float err6, int& a0, int& a1, float& err) {
   const bool use8 = err8 <= err6;
   a0 = use8 ? a0_8 : a0_6;
   a1 = use8 ? a1_8 : a1_6;
   err = use8 ? err8 : err6;
-  if (use8) bc4_assign_idx<true>(vals, a0, a1, idx);
-  else bc4_assign_idx<false>(vals, a0, a1, idx);
+  return use8;
+}
+
+// Full search for one channel on one thread (K2a, K2b): the two families,
+// the pick, the winner's indices. vals in 0..255. Returns the endpoints, the
+// 3-bit DXT5 indices and the squared error of the exact decode.
+__device__ __forceinline__ void bc4_search(const float (&vals)[16], int iters, int radius,
+                                           int rounds, int& a0, int& a1, int (&idx)[16],
+                                           float& err) {
+  int a0_8, a1_8, a0_6, a1_6;
+  float err8, err6;
+  bc4_family8(vals, iters, radius, rounds, a0_8, a1_8, err8);
+  bc4_family6(vals, iters, radius, rounds, a0_6, a1_6, err6);
+  if (bc4_pick(a0_8, a1_8, err8, a0_6, a1_6, err6, a0, a1, err))
+    bc4_assign_idx<true>(vals, a0, a1, idx);
+  else
+    bc4_assign_idx<false>(vals, a0, a1, idx);
 }
 
 // DXT5 index layout (amd_bcx_helpers.cpp:32-46): bit 31 of word 0 carries the

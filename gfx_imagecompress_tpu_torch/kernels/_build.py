@@ -36,6 +36,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 HEADERS = ("bcx_common.cuh", "bc1_search.cuh", "bc4_search.cuh",
+           "bc23_group.cuh",
            "bc7_common.cuh", "bc7_est.cuh", "bc7_group.cuh",
            "bc7_fast_search.cuh", "bc7_full_search.cuh", "bc6h_layouts.cuh",
            "bc6h_search.cuh")
@@ -45,7 +46,8 @@ _BC7_FULL = ("bcx_common.cuh", "bc7_common.cuh", "bc7_group.cuh",
 SOURCES = {
     "bc1": ("bc1_kernel.cu", ("bcx_common.cuh", "bc1_search.cuh")),
     "bc23": ("bc23_kernels.cu",
-             ("bcx_common.cuh", "bc1_search.cuh", "bc4_search.cuh")),
+             ("bcx_common.cuh", "bc1_search.cuh", "bc4_search.cuh",
+              "bc23_group.cuh")),
     "bc45": ("bc45_kernels.cu", ("bcx_common.cuh", "bc4_search.cuh")),
     "bc7_est": ("bc7_est_kernel.cu",
                 ("bcx_common.cuh", "bc7_common.cuh", "bc7_est.cuh")),

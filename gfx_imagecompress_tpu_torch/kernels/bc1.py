@@ -3,8 +3,10 @@
 ``encode_bc1_blocks``, ``encode_bc2_blocks`` and ``encode_bc3_blocks`` are the
 wrappers the API calls. For a CUDA tensor they launch the hand-written kernels
 (``csrc/bc1_kernel.cu``, ``csrc/bc23_kernels.cu``; the colour search is
-``csrc/bc1_search.cuh``: for BC1 a group of lanes per block and colour mode,
-for BC2/BC3 one thread per block; the alpha search ``csrc/bc4_search.cuh``)
+``csrc/bc1_search.cuh``: for BC1 a group of lanes per block and colour
+mode; for BC3 the same groups in the 4-colour mode alone, with the alpha
+search ``csrc/bc4_search.cuh`` in warps of its own, one per ramp family,
+``csrc/bc23_group.cuh``; for BC2 one thread per block)
 and count the launch in ``LAUNCHES``; for a CPU tensor they run the plain
 versions below. Nothing falls back from one to the other.
 
@@ -48,11 +50,15 @@ LAUNCHES = {"bc1": 0, "bc2": 0, "bc3": 0}
 # block and colour mode, and blocks per CTA; a CTA runs both modes of its
 # blocks (2 * 32 * 2 threads), or the 4-colour mode alone without
 # allow_three (32 * 2). With b3d the cube of a (block, mode) runs on a whole
-# warp (BC1_CUBE_LANES lanes), the warp's blocks one after the other. K1b
-# and K1c are one thread per block.
+# warp (BC1_CUBE_LANES lanes), the warp's blocks one after the other.
 BC1_LANES = 2
 BC1_CTA_BLOCKS = 32
 BC1_CUBE_LANES = 32
+# K1b's (csrc/bc23_group.cuh): the colour half on K1a's 4-colour groups
+# (BC1_LANES lanes per block, BC1_CTA_BLOCKS blocks per CTA), and each alpha
+# family of the CTA's blocks in a warp of its own, one thread per block and
+# family. K1c is one thread per block, 128 per CTA.
+BC3_THREADS = BC1_CTA_BLOCKS * (BC1_LANES + 2)
 
 
 def _mean16(x):

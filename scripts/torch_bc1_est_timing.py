@@ -1,55 +1,76 @@
 """Times the BC1 kernel (K1a), the BC3 and BC2 kernels (K1b, K1c, whose
-colour half shares K1a's per-candidate helpers) and the BC7 partition
+colour half shares K1a's helpers: K1b runs K1a's lane groups beside the
+scalar search's two families, K1c the one-thread colour search), the BC4 and
+BC5 kernels (K2a, K2b, the one-thread scalar search whose family helpers
+K1b runs) and the BC7 partition
 shortlist (K3) of this checkout against those of another copy of the port's
 ``csrc/`` (``--parent``), on the same blocks, on one card, in turns
 (``torch_turns.py``: the build side by side, the turns, the comparison).
 
 Both sides are built from their own sources (``bc1_kernel.cu``,
-``bc23_kernels.cu`` and ``bc7_est_kernel.cu``) and called through their C
-functions: ``bc1_encode``, ``bc3_encode``
-and ``bc2_encode`` have one signature in both; this checkout's
-``bc7_est_topk`` also takes the order in which the partitions are dealt to
-its lanes and a per-block bar; the parent's is taken to be the one-thread
-design's, which takes neither. Each measurement is taken as old, new, new,
-old (both readings of each side are reported), CUDA events around
-launches queued behind a device-side sleep (``chip_smoke.queued_ms``), so
-that the host's launch cost does not show, after a warm-up call (and,
-before the first, about two seconds of K1a on both sides):
+``bc23_kernels.cu``, ``bc45_kernels.cu`` and ``bc7_est_kernel.cu``) and
+called through their C functions: ``bc1_encode``, ``bc3_encode``,
+``bc2_encode``, ``bc4_encode`` and ``bc5_encode`` have one signature in
+both; this checkout's ``bc7_est_topk`` also takes the order in which the
+partitions are dealt to its lanes and a per-block bar; the parent's is taken
+to be the one-thread design's, which takes neither. Each measurement
+is taken in turns, every side in order and then in reverse (old, new, new,
+old; both readings of each side are reported), CUDA events around launches
+queued behind a device-side sleep (``chip_smoke.queued_ms``), so that the
+host's launch cost does not show, after a warm-up call (and, before the
+first, about two seconds of K1a on both sides). ``--parts`` picks what is
+timed (default all):
 
-- K1a at ``chip_smoke.py``'s six BC1 budgets (default, use_alpha,
+- ``k1a``: K1a at ``chip_smoke.py``'s six BC1 budgets (default, use_alpha,
   four_only, adaptive, b3d, b3d_use_alpha), on the 4096x4096 photo of
   ``chip_smoke.py`` (1,048,576 blocks; with an alpha field for the
   punch-through budgets) and on the 13x257 photo (260 blocks); and, to see
   where its time goes, the default budget without the refine
   (``no_refine``) and without the refine and the least-squares rounds
   (``no_refine_no_lsq``), at 4096x4096;
-- K1b and K1c at their default budgets on ``chip_smoke.py``'s BC3 and BC2
-  images (1024x1024 photos with an alpha field, 65,536 blocks) and on the
-  13x257 photo with an alpha field;
-- K3 at its four configurations on the main paths (the fast path's
+- ``bc23``: K1b at its default and ``alpha_r1`` (a_radius 1, a_rounds 1)
+  budgets, K1c at its default and ``adaptive`` budgets, on
+  ``chip_smoke.py``'s BC3 and BC2 images (1024x1024 photos with an alpha
+  field, 65,536 blocks) and at the default budgets on the 13x257 photo with
+  an alpha field; on the 1024x1024 images also as ``compress()`` runs them:
+  the kernel right after ``image_to_blocks`` (``chip_smoke.launch_ms``) and
+  the whole ``compress(DXBC3)`` / ``compress(DXBC2)`` call as
+  ``chip_smoke.py`` times it (``time_ms``), with the port's launches routed
+  through each side's library (``torch_turns.port_libraries``);
+- ``bc45``: K2a and K2b at their defaults on ``chip_smoke.py``'s 512x512 BC4
+  and BC5 images (16,384 blocks);
+- ``k3``: K3 at its four configurations on the main paths (the fast path's
   (3 channels, 2 subsets, 64 partitions, 8 levels, k 4) and the full path's
   three: (3, 2, 64, 8, k 8), (3, 3, 64, 4, k 8), (4, 2, 64, 4, k 8, PCA)), on
   the 1024x1024 photo (65,536 blocks), the same photo with an alpha field,
   and the 13x257 photo; the new side without the bar and with the full BC7
   entry's mode 6/7 bar of that image (the old side has no bar).
 
-Words, errors and ids of both sides are compared wherever both rank every
-block (they must be equal: each equals its plain version bit for bit); with
-the bar, the new side's ids are compared with the old side's on the blocks
-that are not barred. Needs a CUDA device. From the root of the repo:
+Words, errors and ids of every side are compared with the old side's
+wherever both rank every block (they must be equal: each equals its plain
+version bit for bit); with the bar, the new side's ids are compared with
+the old side's on the blocks that are not barred. The registers and spills
+of every build are reported from ``ptxas -v``. Needs a CUDA device. From
+the root of the repo:
 
-    python3 scripts/torch_bc1_est_timing.py --parent DIR [--out results.json]
+    python3 scripts/torch_bc1_est_timing.py --parent DIR \
+        [--parts k1a,bc23,bc45,k3] [--out results.json]
 """
 from __future__ import annotations
 
 import ctypes
+import json
 import sys
 
+import numpy as np
 import torch
 
-from torch_turns import (arguments, call, device, finish, function, in_turns,
+from torch_turns import (arguments, blocks_differing, call, device,
+                         finish, function, in_turns, port_libraries,
                          start_build)
-from chip_smoke import photo_rgba, queued_ms, with_alpha_field
+from chip_smoke import (launch_ms, photo_rgba, queued_ms, time_ms,
+                        with_alpha_field)
+import gfx_imagecompress_tpu_torch as gic
 from gfx_imagecompress_tpu_torch.kernels import _build, bc1, bc7_est, bc7_full
 from gfx_imagecompress_tpu_torch.pipeline.blocks import image_to_blocks
 
@@ -57,7 +78,10 @@ P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # bc7_est_topk of the one-thread K3, the parent's design: no deal order, no bar
 EST_ARGS_PARENT = (P, LL, I, I, P, I, I, I, I, P)
 SOURCES = {"bc1": "bc1_kernel.cu", "bc23": "bc23_kernels.cu",
-           "bc7_est": "bc7_est_kernel.cu"}
+           "bc45": "bc45_kernels.cu", "bc7_est": "bc7_est_kernel.cu"}
+PARTS = ("k1a", "bc23", "bc45", "k3")
+BC3_BUDGETS = {"default": {}, "alpha_r1": {"a_radius": 1, "a_rounds": 1}}
+BC2_BUDGETS = {"default": {}, "adaptive": {"adaptive": True}}
 
 THR = 128 / 255.0
 BC1_BUDGETS = {
@@ -85,9 +109,12 @@ EST_CONFIGS = {
 
 
 def bind(libs, parent: bool) -> dict:
-    fns = {k: function(libs, f"{k}_encode") for k in ("bc1", "bc3", "bc2")}
-    fns["est"] = function(libs, "bc7_est_topk",
-                          EST_ARGS_PARENT if parent else None)
+    fns = {k: function(libs, f"{k}_encode")
+           for k in ("bc1", "bc3", "bc2", "bc4", "bc5")
+           if _build.FUNCTIONS[f"{k}_encode"][0] in libs}
+    if "bc7_est" in libs:
+        fns["est"] = function(libs, "bc7_est_topk",
+                              EST_ARGS_PARENT if parent else None)
     fns["parent"] = parent
     return fns
 
@@ -104,13 +131,27 @@ def bc1_call(fns, x, kw, words, err):
          int(k["b3d"]))
 
 
-def bc23_call(fns, which, x, words, err):
-    """K1b (``which`` "bc3") or K1c ("bc2") at the wrappers' defaults."""
+def bc23_call(fns, which, x, kw, words, err):
+    """K1b (``which`` "bc3") or K1c ("bc2") at the wrappers' defaults
+    updated with ``kw``."""
+    k = dict(iters=3, passes=1, adaptive=False, a_iters=3, a_radius=2,
+             a_rounds=2)
+    k.update(kw)
     w = bc1.PERCEPTUAL_WEIGHTS
-    args = [x, x.shape[0], words, err, w[0], w[1], w[2], 3, 1, 0]
+    args = [x, x.shape[0], words, err, w[0], w[1], w[2], k["iters"],
+            k["passes"], int(k["adaptive"])]
     if which == "bc3":
-        args += [3, 2, 2]
+        args += [k["a_iters"], k["a_radius"], k["a_rounds"]]
     call(fns[which], *args)
+
+
+def bc45_call(fns, which, x, words, err):
+    """K2a (``which`` "bc4", x (N,16)) or K2b ("bc5", x (N,16,2)) at the
+    wrappers' defaults."""
+    if which == "bc4":
+        call(fns["bc4"], x, x.shape[0], words, err, 3, 2, 2)
+    else:
+        call(fns["bc5"], x, x.shape[0], x.shape[2], words, err, 3, 2, 2)
 
 
 def est_call(fns, x, cfg, bar, ids):
@@ -135,116 +176,199 @@ def blocks_of(img):
 
 
 def main() -> int:
-    args = arguments(__doc__).parse_args()
+    ap = arguments(__doc__)
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help=f"comma-separated parts to time, of {PARTS}")
+    args = ap.parse_args()
+    parts = [p for p in args.parts.split(",") if p]
+    if set(parts) - set(PARTS):
+        ap.error(f"--parts: unknown {sorted(set(parts) - set(PARTS))}")
     smi = device()
     if smi is None:
         print("needs a CUDA device", file=sys.stderr)
         return 1
     waits = {"old": start_build(args.parent, "k1k3_old", SOURCES),
              "new": start_build(_build.CSRC, "k1k3_new", SOURCES)}
-    side, resources = {}, {}
+    side, libs_of, resources = {}, {}, {}
     for s, wait in waits.items():
-        libs, resources[s] = wait()
-        side[s] = bind(libs, s == "old")
-    names = list(side)
+        libs_of[s], resources[s] = wait()
+        side[s] = bind(libs_of[s], s == "old")
+    names = ["old", "new"]
     res = {"device": smi, "reps": args.reps, "order": "old new new old",
-           "resources": resources, "bc1": {}, "bc23": {}, "est": {}}
+           "parts": parts, "resources": resources, "bc1": {}, "bc23": {},
+           "bc45": {}, "est": {}}
 
     ok = True
-    big = photo_rgba(4096, 4096, seed=100)
-    images = {"4096": (blocks_of(big),
-                       blocks_of(with_alpha_field(big.copy(), 3))),
-              "13x257": (blocks_of(photo_rgba(13, 257, seed=105)),
+
+    def timed(table, key, sides, run, n, cols, reps):
+        """Every side's outputs against the old side's, then the turns of
+        ``sides``; ``run(fns, words, err)`` launches one side."""
+        nonlocal ok
+        outs = {}
+        for s in sides:
+            outs[s] = (torch.empty((n, cols), dtype=torch.int32,
+                                   device="cuda"),
+                       torch.empty((n,), dtype=torch.float32, device="cuda"))
+            run(side[s], *outs[s])
+        torch.cuda.synchronize()
+        differ = {s: blocks_differing(outs["old"], outs[s])
+                  for s in sides[1:]}
+        same = not any(differ.values())
+        ok = ok and same
+        o = outs["new"]
+        table[key] = {
+            "n_blocks": n, "equal": same, "blocks_differing": differ,
+            "ms": in_turns(sides, lambda s: queued_ms(
+                lambda: run(side[s], *o), reps))}
+        print(json.dumps({key: table[key]}), flush=True)
+
+    images = {"13x257": (blocks_of(photo_rgba(13, 257, seed=105)),
                          blocks_of(with_alpha_field(
                              photo_rgba(13, 257, seed=105), 3)))}
-    # a warm-up of about two seconds on both sides, so that the first
-    # readings do not meet the card at its idle clocks
-    w = (torch.empty((big_n := images["4096"][0].shape[0], 2),
-                     dtype=torch.int32, device="cuda"),
-         torch.empty((big_n,), dtype=torch.float32, device="cuda"))
-    for _ in range(250):
-        for s in side:
-            bc1_call(side[s], images["4096"][0], {}, *w)
-    torch.cuda.synchronize()
-    for name, kw in {**BC1_BUDGETS, **BC1_PARTS}.items():
-        for size, (opaque, alpha) in images.items():
-            if name in BC1_PARTS and size != "4096":
-                continue
-            x = alpha if kw.get("use_alpha") else opaque
-            n = x.shape[0]
-            out = {s: (torch.empty((n, 2), dtype=torch.int32, device="cuda"),
-                       torch.empty((n,), dtype=torch.float32, device="cuda"))
-                   for s in side}
-            for s in side:
-                bc1_call(side[s], x, kw, *out[s])
-            torch.cuda.synchronize()
-            same = bool(torch.equal(out["old"][0], out["new"][0])
-                        and torch.equal(out["old"][1], out["new"][1]))
-            ok = ok and same
-            reps = max(2, args.reps // 5) if kw.get("b3d") and n > 1e5 \
-                else args.reps
-            res["bc1"][f"{name}_{size}"] = {
-                "n_blocks": n, "equal": same,
-                "ms": in_turns(names, lambda s, x=x, kw=kw, o=out["new"]:
-                               queued_ms(lambda: bc1_call(side[s], x, kw, *o),
-                                         reps))}
+    if "k1a" in parts:
+        big = photo_rgba(4096, 4096, seed=100)
+        images["4096"] = (blocks_of(big),
+                          blocks_of(with_alpha_field(big.copy(), 3)))
+        # a warm-up of about two seconds on both sides, so that the first
+        # readings do not meet the card at its idle clocks
+        w = (torch.empty((big_n := images["4096"][0].shape[0], 2),
+                         dtype=torch.int32, device="cuda"),
+             torch.empty((big_n,), dtype=torch.float32, device="cuda"))
+        for _ in range(250):
+            for s in names:
+                bc1_call(side[s], images["4096"][0], {}, *w)
+        torch.cuda.synchronize()
+        for name, kw in {**BC1_BUDGETS, **BC1_PARTS}.items():
+            for size in ("4096", "13x257"):
+                if name in BC1_PARTS and size != "4096":
+                    continue
+                opaque, alpha = images[size]
+                x = alpha if kw.get("use_alpha") else opaque
+                n = x.shape[0]
+                reps = max(2, args.reps // 5) if kw.get("b3d") and n > 1e5 \
+                    else args.reps
+                timed(res["bc1"], f"{name}_{size}", names,
+                      lambda f, wd, e, x=x, kw=kw: bc1_call(f, x, kw, wd, e),
+                      n, 2, reps)
 
-    # chip_smoke.py's BC3 and BC2 images
-    bc23_images = {"bc3": blocks_of(with_alpha_field(
-        photo_rgba(1024, 1024, seed=104), 4)),
-        "bc2": blocks_of(with_alpha_field(
-            photo_rgba(1024, 1024, seed=103), 3))}
-    for which in ("bc3", "bc2"):
-        for size, x in (("1k_alpha", bc23_images[which]),
-                        ("13x257", images["13x257"][1])):
-            n = x.shape[0]
-            out = {s: (torch.empty((n, 4), dtype=torch.int32, device="cuda"),
-                       torch.empty((n,), dtype=torch.float32, device="cuda"))
-                   for s in side}
-            for s in side:
-                bc23_call(side[s], which, x, *out[s])
+    if "bc23" in parts:
+        # chip_smoke.py's BC3 and BC2 images
+        arrays = {"bc3": with_alpha_field(photo_rgba(1024, 1024, seed=104),
+                                          4),
+                  "bc2": with_alpha_field(photo_rgba(1024, 1024, seed=103),
+                                          3)}
+        bc23_images = {k: blocks_of(a) for k, a in arrays.items()}
+        # a warm-up of about a second
+        for _ in range(100):
+            for s in names:
+                x = bc23_images["bc3"]
+                bc23_call(side[s], "bc3", x, {}, *(
+                    torch.empty((x.shape[0], 4), dtype=torch.int32,
+                                device="cuda"),
+                    torch.empty((x.shape[0],), dtype=torch.float32,
+                                device="cuda")))
+        torch.cuda.synchronize()
+        for which, budgets in (("bc3", BC3_BUDGETS), ("bc2", BC2_BUDGETS)):
+            for budget, kw in budgets.items():
+                for size, x in (("1k_alpha", bc23_images[which]),
+                                ("13x257", images["13x257"][1])):
+                    if size == "13x257" and budget != "default":
+                        continue
+                    timed(res["bc23"], f"{which}_{budget}_{size}", names,
+                          lambda f, wd, e, x=x, kw=kw, which=which:
+                          bc23_call(f, which, x, kw, wd, e),
+                          x.shape[0], 4, args.reps)
+        # as compress() runs them: the kernel right after image_to_blocks,
+        # and the whole call with the port's launches routed through each
+        # side's library
+        ctypes_of = {"bc3": gic.CompressType.DXBC3,
+                     "bc2": gic.CompressType.DXBC2}
+        for which, arr in arrays.items():
+            t = torch.from_numpy(arr[None]).cuda()
+            x = bc23_images[which]
+            o = (torch.empty((x.shape[0], 4), dtype=torch.int32,
+                             device="cuda"),
+                 torch.empty((x.shape[0],), dtype=torch.float32,
+                             device="cuda"))
+            res["bc23"][f"{which}_default_1k_alpha_after_blocks"] = {
+                "ms": in_turns(names, lambda s, t=t, x=x, o=o, which=which:
+                               launch_ms(lambda: image_to_blocks(t),
+                                         lambda: bc23_call(side[s], which, x,
+                                                           {}, *o),
+                                         args.reps))}
+            img = gic.Image.from_array(np.ascontiguousarray(arr[None]))
+            outs = {}
+            for s in names:
+                with port_libraries({"bc23": libs_of[s]["bc23"]}):
+                    outs[s] = (gic.compress(ctypes_of[which], img)
+                               .blocks.reshape(-1, 4),)
             torch.cuda.synchronize()
-            same = bool(torch.equal(out["old"][0], out["new"][0])
-                        and torch.equal(out["old"][1], out["new"][1]))
-            ok = ok and same
-            res["bc23"][f"{which}_{size}"] = {
-                "n_blocks": n, "equal": same,
-                "ms": in_turns(names, lambda s, x=x, which=which, o=out["new"]:
-                               queued_ms(lambda: bc23_call(side[s], which, x,
-                                                           *o), args.reps))}
+            differ = blocks_differing(outs["old"], outs["new"])
+            ok = ok and differ == 0
 
-    photo = photo_rgba(1024, 1024, seed=110)
-    est_images = {"1k": blocks_of(photo),
-                  "1k_alpha": blocks_of(with_alpha_field(photo.copy(), 6)),
-                  "13x257": blocks_of(photo_rgba(13, 257, seed=113))}
-    for cname, cfg in EST_CONFIGS.items():
-        for iname, x in est_images.items():
-            n, k = x.shape[0], cfg["k"]
-            bar = bc7_full._combined_alpha_bar(x, True, True)
-            ids = {s: torch.empty((n, k), dtype=torch.int32, device="cuda")
-                   for s in ("old", "new", "new_bar")}
-            est_call(side["old"], x, cfg, None, ids["old"])
-            est_call(side["new"], x, cfg, None, ids["new"])
-            est_call(side["new"], x, cfg, bar, ids["new_bar"])
-            torch.cuda.synchronize()
-            first = torch.tensor(cfg["plist"][:k], dtype=torch.int32,
-                                 device="cuda")
-            same = bool(torch.equal(ids["old"], ids["new"])
-                        and torch.equal(ids["old"][~bar], ids["new_bar"][~bar])
-                        and (ids["new_bar"][bar] == first).all().item())
-            ok = ok and same
-            o = torch.empty((n, k), dtype=torch.int32, device="cuda")
-            res["est"][f"{cname}_{iname}"] = {
-                "n_blocks": n, "barred_frac": bar.double().mean().item(),
-                "equal": same,
-                "ms": in_turns(names, lambda s, x=x, cfg=cfg: queued_ms(
-                    lambda: est_call(side[s], x, cfg, None, o), args.reps)),
-                "ms_bar": in_turns(names, lambda s, x=x, cfg=cfg, bar=bar:
-                                   queued_ms(lambda: est_call(
-                                       side[s], x, cfg,
-                                       None if s == "old" else bar, o),
-                                       args.reps))}
+            def compress_ms(s, img=img, which=which):
+                with port_libraries({"bc23": libs_of[s]["bc23"]}):
+                    return time_ms(lambda: gic.compress(ctypes_of[which],
+                                                        img), args.reps)
+            res["bc23"][f"compress_{which}_1k"] = {
+                "blocks_differing": differ,
+                "ms": in_turns(names, compress_ms)}
+            print(json.dumps({f"compress_{which}_1k":
+                              res["bc23"][f"compress_{which}_1k"]}),
+                  flush=True)
+
+    if "bc45" in parts:
+        # chip_smoke.py's BC4 and BC5 images
+        bc45_images = {
+            "bc4": image_to_blocks(torch.from_numpy(photo_rgba(
+                512, 512, seed=101)[None, ..., :1]).cuda())[:, :, 0]
+            .contiguous(),
+            "bc5": image_to_blocks(torch.from_numpy(photo_rgba(
+                512, 512, seed=102)[None, ..., :2]).cuda()).contiguous()}
+        for which, x in bc45_images.items():
+            timed(res["bc45"], f"{which}_512", names,
+                  lambda f, wd, e, x=x, which=which:
+                  bc45_call(f, which, x, wd, e),
+                  x.shape[0], 2 if which == "bc4" else 4, args.reps)
+
+    if "k3" in parts:
+        photo = photo_rgba(1024, 1024, seed=110)
+        est_images = {"1k": blocks_of(photo),
+                      "1k_alpha": blocks_of(with_alpha_field(photo.copy(),
+                                                             6)),
+                      "13x257": blocks_of(photo_rgba(13, 257, seed=113))}
+        for cname, cfg in EST_CONFIGS.items():
+            for iname, x in est_images.items():
+                n, k = x.shape[0], cfg["k"]
+                bar = bc7_full._combined_alpha_bar(x, True, True)
+                ids = {s: torch.empty((n, k), dtype=torch.int32,
+                                      device="cuda")
+                       for s in ("old", "new", "new_bar")}
+                est_call(side["old"], x, cfg, None, ids["old"])
+                est_call(side["new"], x, cfg, None, ids["new"])
+                est_call(side["new"], x, cfg, bar, ids["new_bar"])
+                torch.cuda.synchronize()
+                first = torch.tensor(cfg["plist"][:k], dtype=torch.int32,
+                                     device="cuda")
+                same = bool(torch.equal(ids["old"], ids["new"])
+                            and torch.equal(ids["old"][~bar],
+                                            ids["new_bar"][~bar])
+                            and (ids["new_bar"][bar] == first).all().item())
+                ok = ok and same
+                o = torch.empty((n, k), dtype=torch.int32, device="cuda")
+                res["est"][f"{cname}_{iname}"] = {
+                    "n_blocks": n, "barred_frac": bar.double().mean().item(),
+                    "equal": same,
+                    "ms": in_turns(names, lambda s, x=x, cfg=cfg: queued_ms(
+                        lambda: est_call(side[s], x, cfg, None, o),
+                        args.reps)),
+                    "ms_bar": in_turns(names, lambda s, x=x, cfg=cfg, bar=bar:
+                                       queued_ms(lambda: est_call(
+                                           side[s], x, cfg,
+                                           None if s == "old" else bar, o),
+                                           args.reps))}
     return finish(res, args.out, ok)
+
 
 if __name__ == "__main__":
     sys.exit(main())

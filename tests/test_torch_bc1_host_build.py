@@ -10,8 +10,9 @@ colour modes of a block one after the other, so the host build runs the
 card's own phase and scan code. The same numpy blocks go through the host
 build and through ``encode_bc1_blocks_plain``, and the words and errors must
 be equal on every block (``-ffp-contract=off`` stands in for ``nvcc
--fmad=false``). The one-thread ``bc1_search`` that K1b and K1c call is held
-to the plain version's 4-colour search the same way. The launch, the loads
+-fmad=false``). The one-thread ``bc1_search`` that K1c calls is held to
+the plain version's 4-colour search the same way; K1b's colour half runs
+K1a's phases (``tests/test_torch_bc23_host_build.py``). The launch, the loads
 and the resource use are checked only on the card (``chip_smoke.py``,
 ``tests/test_torch_cuda.py``).
 """
@@ -140,7 +141,7 @@ extern "C" void host_bc1_shape(int* out) {
   out[2] = bcx::BC1_CUBE_LANES;
 }
 
-// the one-thread search of K1b / K1c (4 colours, opaque) on RGBA blocks
+// the one-thread search of K1c (4 colours, opaque) on RGBA blocks
 extern "C" void host_bc1_one_thread(const float* x, long long n,
                                     const float* w, int iters, int passes,
                                     int adaptive, unsigned* words,
@@ -279,8 +280,8 @@ def test_bc1_phases_do_not_depend_on_lane_order(host_lib, budget):
 @pytest.mark.parametrize("kw", [{}, {"passes": 2}, {"adaptive": True}],
                          ids=["default", "passes2", "adaptive"])
 def test_host_built_one_thread_search_equals_plain_version(host_lib, kw):
-    """The one-thread search that K1b and K1c run for their colour half:
-    4 colours, opaque."""
+    """The one-thread search that K1c runs for its colour half: 4 colours,
+    opaque."""
     x = _blocks()
     k = dict(iters=3, passes=1, adaptive=False)
     k.update(kw)

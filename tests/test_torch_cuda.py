@@ -143,6 +143,33 @@ def test_bc1_kernel_at_block_counts_that_do_not_fill_a_cta(n, budget):
     assert torch.equal(ek, ep)
 
 
+BC23_CASES = {
+    "bc3": (bc1.encode_bc3_blocks, bc1.encode_bc3_blocks_plain, {}),
+    "bc3_alpha_r1": (bc1.encode_bc3_blocks, bc1.encode_bc3_blocks_plain,
+                     {"a_radius": 1, "a_rounds": 1}),
+    "bc2": (bc1.encode_bc2_blocks, bc1.encode_bc2_blocks_plain, {}),
+    "bc2_adaptive": (bc1.encode_bc2_blocks, bc1.encode_bc2_blocks_plain,
+                     {"adaptive": True}),
+}
+
+
+@pytest.mark.parametrize("name", list(BC23_CASES))
+@pytest.mark.parametrize("n", [1, 3, 4097])
+def test_bc23_kernels_at_block_counts_that_do_not_fill_a_cta(n, name):
+    """K1b encodes 32 blocks per CTA (the colour half two lanes per block,
+    the alpha families in warps of their own), K1c 128 (one thread per
+    block): grids whose last CTA is partly empty, words and errors
+    bit-identical to the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    wrapper, plain, kw = BC23_CASES[name]
+    x = torch.from_numpy(_blocks(max(n, 128), seed=n)[:n].copy()).cuda()
+    wk, ek = wrapper(x, **kw)
+    wp, ep = plain(x, **kw)
+    assert torch.equal(wk, wp)
+    assert torch.equal(ek, ep)
+
+
 @pytest.mark.parametrize("barred", [False, True], ids=["free", "barred"])
 @pytest.mark.parametrize("n", [1, 3, 4097])
 @pytest.mark.parametrize("name", ["rgb_2sub", "rgb_3sub", "rgba_pca"])
