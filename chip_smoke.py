@@ -261,13 +261,17 @@ def bc4_climb_evals(vals01, iters=3, radius=2, rounds=2):
     on this data, as means over the blocks: (8-point family, 6-point family).
     A candidate whose endpoint order is wrong for its family can never win and
     needs no evaluation; that happens only where the two endpoints lie within
-    the climb radius of each other. vals01 is (N,16) in [0,1]."""
+    the climb radius of each other. Nor does a candidate of a later round that
+    lies inside the previous round's (clamped) box: the previous round already
+    bettered or matched it, and only a strictly smaller error wins. vals01 is
+    (N,16) in [0,1]."""
     from gfx_imagecompress_tpu_torch.kernels import bc4
     vals = vals01.t() * 255.0
     means = []
     for eight, seed in ((True, bc4._seed8), (False, bc4._seed6)):
         s0, s1 = seed(vals, iters)
         total = 0
+        box = None
         for r in range(rounds):
             rad = radius if r == 0 else 1
             c0, c1 = (s0, s1) if r == 0 else bc4._sweep(
@@ -278,7 +282,14 @@ def bc4_climb_evals(vals01, iters=3, radius=2, rounds=2):
                         continue
                     a = torch.clamp(c0 + d0, 0, 255)
                     b = torch.clamp(c1 + d1, 0, 255)
-                    total += ((a > b) if eight else (a <= b)).sum().item()
+                    need = (a > b) if eight else (a <= b)
+                    if box is not None:
+                        lo0, hi0, lo1, hi1 = box
+                        need &= ~((a >= lo0) & (a <= hi0)
+                                  & (b >= lo1) & (b <= hi1))
+                    total += need.sum().item()
+            box = (torch.clamp(c0 - rad, 0, 255), torch.clamp(c0 + rad, 0, 255),
+                   torch.clamp(c1 - rad, 0, 255), torch.clamp(c1 + rad, 0, 255))
         means.append(total / vals.shape[1])
     return tuple(means)
 
@@ -680,7 +691,7 @@ def compare(name, label, wrapper, plain, x, kw, decode, reps, exact_cols=(),
     for lo, hi, what in exact_cols:
         check((wk[:, lo:hi] == wp[:, lo:hi]).all().item(),
               f"{tag}: {what} words not bit-identical")
-    if name == "bc6h":
+    if name in ("bc4", "bc5", "bc6h"):
         check(max_abs == 0.0, f"{tag}: errors differ from the plain version "
               f"by up to {max_abs}")
     row = {"kernel": name, "budget": label, "n_blocks": int(x.shape[0]),
@@ -856,7 +867,11 @@ def main() -> int:
         ("bc3", "adaptive", {"adaptive": True}, n_mixed),
         ("bc3", "alpha_r1", {"a_radius": 1, "a_rounds": 1}, n_mixed),
         ("bc4", "default", {}, n_mixed),
+        ("bc4", "r1", {"radius": 1, "rounds": 1}, n_mixed),
+        ("bc4", "r3", {"radius": 3, "rounds": 3}, n_mixed),
         ("bc5", "default", {}, n_mixed),
+        ("bc5", "r1", {"radius": 1, "rounds": 1}, n_mixed),
+        ("bc5", "r3", {"radius": 3, "rounds": 3}, n_mixed),
         ("bc7_fast", "default", {}, n_mixed),
         ("bc7_fast", "fast", {"fast": True}, n_mixed),
         ("bc7_fast", "rgb_metric", {"perceptual": False}, n_mixed),
@@ -1256,9 +1271,10 @@ def main() -> int:
                 "gfx_imagecompress_tpu/kernels/bc1_pallas.py:635", 276),
         "bc3": ("gfx_imagecompress_tpu_torch/csrc/bc23_group.cuh",
                 "gfx_imagecompress_tpu/kernels/bc1_pallas.py:612", 276),
-        "bc4": ("gfx_imagecompress_tpu_torch/csrc/bc45_kernels.cu",
+        # the kernels sit in bc45_group.cuh; bc45_kernels.cu launches them
+        "bc4": ("gfx_imagecompress_tpu_torch/csrc/bc45_group.cuh",
                 "gfx_imagecompress_tpu/kernels/bc4_pallas.py:265", 76),
-        "bc5": ("gfx_imagecompress_tpu_torch/csrc/bc45_kernels.cu",
+        "bc5": ("gfx_imagecompress_tpu_torch/csrc/bc45_group.cuh",
                 "gfx_imagecompress_tpu/kernels/bc4_pallas.py:274", 148),
     }
 
@@ -1538,6 +1554,18 @@ def main() -> int:
                             threads_per_cta=bc1.BC3_THREADS)
             else:
                 more.update(lanes_per_block=1, threads_per_cta=128)
+        if name in ("bc4", "bc5"):
+            # K2a / K2b: 2 * lanes per block and channel (one ramp family on
+            # each half), BC5's two channels side by side
+            nch = 1 if name == "bc4" else 2
+            lanes = bc4.BC45_LANES
+            more = dict(lanes_per_block_and_family=lanes,
+                        lanes_per_block=2 * nch * lanes,
+                        threads_per_cta=bc4.BC45_THREADS,
+                        blocks_per_cta=bc4.BC45_THREADS // (2 * nch * lanes),
+                        resources=[k for k in resources
+                                   if k["lib"] == "bc45"
+                                   and k["kernel"].startswith(name)])
         if name == "bc7_fast":
             more = dict(lanes_per_block=bc7_fast.FAST_LANES,
                         threads_per_cta=bc7_fast.FAST_THREADS,

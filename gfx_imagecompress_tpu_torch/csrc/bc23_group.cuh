@@ -21,7 +21,7 @@
 // holds, beside the colour groups (warps 0-1), the 8-point family of its
 // blocks' alpha in a warp of its own (warp 2) and the 6-point family in
 // another (warp 3), one thread per (block, family) running the family whole
-// (bc4_family8 / bc4_family6, K2a's code); each family runs without
+// (bc4_family8 / bc4_family6); each family runs without
 // divergence and concurrently with the colour half. After a __syncthreads
 // both family threads of a block make the pick (bc4_pick) and assign the
 // winner's indices of 8 pixels each; after one more, the colour group's lane

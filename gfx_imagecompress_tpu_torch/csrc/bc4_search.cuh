@@ -17,8 +17,11 @@
 // The search is two independent families, which meet only at the pick
 // (bc4_pick): the 8-point ramp (bc4_family8: fit, min/max race, hill climb)
 // and the 6-point ramp (bc4_family6: fit, sorting network, 9 trimmed seeds,
-// hill climb). bc4_search runs both on one thread (K2a, K2b); K1b runs each
-// in a warp of its own (csrc/bc23_group.cuh), which is why they are helpers.
+// hill climb). K1b runs each family whole on one thread, in a warp of its
+// own (csrc/bc23_group.cuh). K2a and K2b deal the same search's seeds and
+// climb candidates to a group of lanes (csrc/bc45_group.cuh) and share the
+// pieces below: the palette, the least-squares solve, the sorting network,
+// the pick, the nearest entry and the pack.
 #pragma once
 #include "bcx_common.cuh"
 
@@ -79,14 +82,17 @@ __device__ __forceinline__ int bc4_nearest(float v, const float (&pal)[8]) {
   return bi;
 }
 
-// Nearest ramp entry of every pixel, 3 bits each.
-template <bool EIGHT>
-__device__ __forceinline__ void bc4_assign_idx(const float (&vals)[16], int a0, int a1,
-                                               int (&idx)[16]) {
-  float pal[8];
-  bc4_palette<EIGHT>(a0, a1, pal);
-#pragma unroll
-  for (int p = 0; p < 16; ++p) idx[p] = bc4_nearest(vals[p], pal);
+// The 2x2 normal equations of a least-squares round; a singular system
+// keeps the endpoints.
+__device__ __forceinline__ void bc4_solve(float q00, float q01, float q11, float b0, float b1,
+                                          float& e0, float& e1) {
+  const float det = q00 * q11 - q01 * q01;
+  const bool ok = fabsf(det) > (float)(1e-6);
+  const float inv = 1.0f / (ok ? det : 1.0f);
+  const float n0 = (q11 * b0 - q01 * b1) * inv;
+  const float n1 = (q00 * b1 - q01 * b0) * inv;
+  e0 = ok ? n0 : e0;
+  e1 = ok ? n1 : e1;
 }
 
 // Least-squares ramp fit: assign every pixel to its nearest interpolated
@@ -134,13 +140,7 @@ __device__ __forceinline__ void bc4_fit_ramp(const float (&vals)[16], const floa
       b0 = (p == 0) ? tb0 : b0 + tb0;
       b1 = (p == 0) ? tb1 : b1 + tb1;
     }
-    const float det = q00 * q11 - q01 * q01;
-    const bool ok = fabsf(det) > (float)(1e-6);
-    const float inv = 1.0f / (ok ? det : 1.0f);
-    const float n0 = (q11 * b0 - q01 * b1) * inv;
-    const float n1 = (q00 * b1 - q01 * b0) * inv;
-    e0 = ok ? n0 : e0;
-    e1 = ok ? n1 : e1;
+    bc4_solve(q00, q01, q11, b0, b1, e0, e1);
   }
 }
 
@@ -266,22 +266,6 @@ __device__ __forceinline__ bool bc4_pick(int a0_8, int a1_8, float err8, int a0_
   a1 = use8 ? a1_8 : a1_6;
   err = use8 ? err8 : err6;
   return use8;
-}
-
-// Full search for one channel on one thread (K2a, K2b): the two families,
-// the pick, the winner's indices. vals in 0..255. Returns the endpoints, the
-// 3-bit DXT5 indices and the squared error of the exact decode.
-__device__ __forceinline__ void bc4_search(const float (&vals)[16], int iters, int radius,
-                                           int rounds, int& a0, int& a1, int (&idx)[16],
-                                           float& err) {
-  int a0_8, a1_8, a0_6, a1_6;
-  float err8, err6;
-  bc4_family8(vals, iters, radius, rounds, a0_8, a1_8, err8);
-  bc4_family6(vals, iters, radius, rounds, a0_6, a1_6, err6);
-  if (bc4_pick(a0_8, a1_8, err8, a0_6, a1_6, err6, a0, a1, err))
-    bc4_assign_idx<true>(vals, a0, a1, idx);
-  else
-    bc4_assign_idx<false>(vals, a0, a1, idx);
 }
 
 // DXT5 index layout (amd_bcx_helpers.cpp:32-46): bit 31 of word 0 carries the

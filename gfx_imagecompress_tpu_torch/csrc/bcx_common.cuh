@@ -1,10 +1,10 @@
 // Shared by the kernel sources: launch shape, pixel loads, argument check.
 //
-// In the kernels that launch with THREADS and block_index (all but K1a, the
-// BC7 shortlist, the fast and the full BC7 search and BC6H, where a group of
-// lanes shares a block: bc1_search.cuh, bc7_est.cuh, bc7_fast_search.cuh,
-// bc7_full_search.cuh, bc6h_search.cuh), one thread encodes one 4x4 block;
-// 128 threads per CTA. A thread reads its
+// In the kernel that launches with THREADS and block_index (K1c; in the
+// others a group of lanes shares a block: bc1_search.cuh, bc23_group.cuh,
+// bc45_group.cuh, bc7_est.cuh, bc7_fast_search.cuh, bc7_full_search.cuh,
+// bc6h_search.cuh), one thread encodes one 4x4 block; 128 threads per CTA.
+// A thread reads its
 // 16 pixels straight from the (N,16,C) tensor image_to_blocks() produced -
 // 16-byte loads for RGBA - rather than from a channel-major transpose: the
 // searches are bound by operations, not bytes, every byte of each cache line

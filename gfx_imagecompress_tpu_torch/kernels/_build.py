@@ -36,7 +36,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 HEADERS = ("bcx_common.cuh", "bc1_search.cuh", "bc4_search.cuh",
-           "bc23_group.cuh",
+           "bc23_group.cuh", "bc45_group.cuh",
            "bc7_common.cuh", "bc7_est.cuh", "bc7_group.cuh",
            "bc7_fast_search.cuh", "bc7_full_search.cuh", "bc6h_layouts.cuh",
            "bc6h_search.cuh")
@@ -48,7 +48,8 @@ SOURCES = {
     "bc23": ("bc23_kernels.cu",
              ("bcx_common.cuh", "bc1_search.cuh", "bc4_search.cuh",
               "bc23_group.cuh")),
-    "bc45": ("bc45_kernels.cu", ("bcx_common.cuh", "bc4_search.cuh")),
+    "bc45": ("bc45_kernels.cu",
+             ("bcx_common.cuh", "bc4_search.cuh", "bc45_group.cuh")),
     "bc7_est": ("bc7_est_kernel.cu",
                 ("bcx_common.cuh", "bc7_common.cuh", "bc7_est.cuh")),
     "bc7_fast": ("bc7_fast_kernel.cu",

@@ -2,9 +2,11 @@
 
 ``encode_bc4_blocks`` and ``encode_bc5_blocks`` are the wrappers the API
 calls. For a CUDA tensor they launch the hand-written kernels of
-``csrc/bc45_kernels.cu`` (whose search is ``csrc/bc4_search.cuh``) and count
-the launch in ``LAUNCHES``; for a CPU tensor they run the plain versions
-below. Nothing falls back from one to the other.
+``csrc/bc45_kernels.cu`` (whose phases are ``csrc/bc45_group.cuh``: a group
+of lanes per block and channel, the two ramp families side by side, the
+seeds and hill-climb candidates dealt to the lanes) and count the launch in
+``LAUNCHES``; for a CPU tensor they run the plain versions below. Nothing
+falls back from one to the other.
 
 The plain versions mirror the JAX package's Pallas bodies
 (``kernels/bc4_pallas.py``: ``_bc4_search``, ``_bc4_kernel``, ``_bc5_kernel``)
@@ -37,6 +39,11 @@ W6 = (0.0, 1.0, 1 / 5, 2 / 5, 3 / 5, 4 / 5)
 
 # launches of each CUDA kernel made by the wrappers below
 LAUNCHES = {"bc4": 0, "bc5": 0}
+# the kernels' launch shape (csrc/bc45_group.cuh): lanes per block, channel
+# and ramp family (K2a: 2 * BC45_LANES lanes per block, K2b: 4 *
+# BC45_LANES), threads per CTA
+BC45_LANES = 1
+BC45_THREADS = 256
 
 
 # ------------------------------------------------------------ row helpers ---

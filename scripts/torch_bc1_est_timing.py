@@ -1,8 +1,8 @@
 """Times the BC1 kernel (K1a), the BC3 and BC2 kernels (K1b, K1c, whose
 colour half shares K1a's helpers: K1b runs K1a's lane groups beside the
 scalar search's two families, K1c the one-thread colour search), the BC4 and
-BC5 kernels (K2a, K2b, the one-thread scalar search whose family helpers
-K1b runs) and the BC7 partition
+BC5 kernels (K2a, K2b, the scalar search on a group of lanes per block and
+channel, sharing the ramp helpers of K1b's alpha half) and the BC7 partition
 shortlist (K3) of this checkout against those of another copy of the port's
 ``csrc/`` (``--parent``), on the same blocks, on one card, in turns
 (``torch_turns.py``: the build side by side, the turns, the comparison).
@@ -37,8 +37,17 @@ timed (default all):
   the whole ``compress(DXBC3)`` / ``compress(DXBC2)`` call as
   ``chip_smoke.py`` times it (``time_ms``), with the port's launches routed
   through each side's library (``torch_turns.port_libraries``);
-- ``bc45``: K2a and K2b at their defaults on ``chip_smoke.py``'s 512x512 BC4
-  and BC5 images (16,384 blocks);
+- ``bc45``: K2a and K2b on ``chip_smoke.py``'s 512x512 BC4 and BC5 images
+  (16,384 blocks) at the default, ``r1`` (radius 1, rounds 1) and ``r3``
+  (radius 3, rounds 3) budgets, and at the default on the 13x257 photo (260
+  blocks), BC4 at 4096x4096 (1,048,576 blocks) and BC5 at 2048x2048
+  (262,144); at 512x512 also as ``compress()`` runs them: the kernel right
+  after ``image_to_blocks`` and the whole ``compress(DXBC4)`` /
+  ``compress(DXBC5)`` call, routed through each side's library.
+  ``--lanes 1,2,4x256`` adds builds of this checkout's K2a and K2b at other
+  launch shapes (``scripts/torch_lanes_bc45.cu``: the same templates and C
+  functions at ``-DSWEEP_LANES=n``, and ``-DSWEEP_THREADS=t`` where the entry
+  is ``nxt``), timed beside the two sides in this part;
 - ``k3``: K3 at its four configurations on the main paths (the fast path's
   (3 channels, 2 subsets, 64 partitions, 8 levels, k 4) and the full path's
   three: (3, 2, 64, 8, k 8), (3, 3, 64, 4, k 8), (4, 2, 64, 4, k 8, PCA)), on
@@ -54,7 +63,7 @@ of every build are reported from ``ptxas -v``. Needs a CUDA device. From
 the root of the repo:
 
     python3 scripts/torch_bc1_est_timing.py --parent DIR \
-        [--parts k1a,bc23,bc45,k3] [--out results.json]
+        [--parts k1a,bc23,bc45,k3] [--lanes 1,2,4,8] [--out results.json]
 """
 from __future__ import annotations
 
@@ -65,7 +74,7 @@ import sys
 import numpy as np
 import torch
 
-from torch_turns import (arguments, blocks_differing, call, device,
+from torch_turns import (ROOT, arguments, blocks_differing, call, device,
                          finish, function, in_turns, port_libraries,
                          start_build)
 from chip_smoke import (launch_ms, photo_rgba, queued_ms, time_ms,
@@ -80,6 +89,9 @@ EST_ARGS_PARENT = (P, LL, I, I, P, I, I, I, I, P)
 SOURCES = {"bc1": "bc1_kernel.cu", "bc23": "bc23_kernels.cu",
            "bc45": "bc45_kernels.cu", "bc7_est": "bc7_est_kernel.cu"}
 PARTS = ("k1a", "bc23", "bc45", "k3")
+LANE_SOURCES = {"bc45": ROOT / "scripts" / "torch_lanes_bc45.cu"}
+BC45_BUDGETS = {"default": {}, "r1": {"radius": 1, "rounds": 1},
+                "r3": {"radius": 3, "rounds": 3}}
 BC3_BUDGETS = {"default": {}, "alpha_r1": {"a_radius": 1, "a_rounds": 1}}
 BC2_BUDGETS = {"default": {}, "adaptive": {"adaptive": True}}
 
@@ -145,13 +157,16 @@ def bc23_call(fns, which, x, kw, words, err):
     call(fns[which], *args)
 
 
-def bc45_call(fns, which, x, words, err):
+def bc45_call(fns, which, x, kw, words, err):
     """K2a (``which`` "bc4", x (N,16)) or K2b ("bc5", x (N,16,2)) at the
-    wrappers' defaults."""
+    wrappers' defaults updated with ``kw``."""
+    k = dict(iters=3, radius=2, rounds=2)
+    k.update(kw)
+    budget = (k["iters"], k["radius"], k["rounds"])
     if which == "bc4":
-        call(fns["bc4"], x, x.shape[0], words, err, 3, 2, 2)
+        call(fns["bc4"], x, x.shape[0], words, err, *budget)
     else:
-        call(fns["bc5"], x, x.shape[0], x.shape[2], words, err, 3, 2, 2)
+        call(fns["bc5"], x, x.shape[0], x.shape[2], words, err, *budget)
 
 
 def est_call(fns, x, cfg, bar, ids):
@@ -179,6 +194,10 @@ def main() -> int:
     ap = arguments(__doc__)
     ap.add_argument("--parts", default=",".join(PARTS),
                     help=f"comma-separated parts to time, of {PARTS}")
+    ap.add_argument("--lanes", default="",
+                    help="comma-separated launch shapes of extra builds of "
+                         "this checkout's K2a and K2b: lanes per block and "
+                         "family, optionally xTHREADS per CTA (bc45 part)")
     args = ap.parse_args()
     parts = [p for p in args.parts.split(",") if p]
     if set(parts) - set(PARTS):
@@ -189,11 +208,21 @@ def main() -> int:
         return 1
     waits = {"old": start_build(args.parent, "k1k3_old", SOURCES),
              "new": start_build(_build.CSRC, "k1k3_new", SOURCES)}
+    sweep = []
+    for shape in [v for v in args.lanes.split(",") if v]:
+        lanes, _, threads = shape.partition("x")
+        flags = [f"-DSWEEP_LANES={int(lanes)}"]
+        if threads:
+            flags.append(f"-DSWEEP_THREADS={int(threads)}")
+        sweep.append(f"new_l{shape}")
+        waits[sweep[-1]] = start_build(_build.CSRC, f"k2_l{shape}",
+                                       LANE_SOURCES, flags)
     side, libs_of, resources = {}, {}, {}
     for s, wait in waits.items():
         libs_of[s], resources[s] = wait()
         side[s] = bind(libs_of[s], s == "old")
     names = ["old", "new"]
+    names45 = names + sweep
     res = {"device": smi, "reps": args.reps, "order": "old new new old",
            "parts": parts, "resources": resources, "bc1": {}, "bc23": {},
            "bc45": {}, "est": {}}
@@ -318,18 +347,83 @@ def main() -> int:
                   flush=True)
 
     if "bc45" in parts:
-        # chip_smoke.py's BC4 and BC5 images
-        bc45_images = {
-            "bc4": image_to_blocks(torch.from_numpy(photo_rgba(
-                512, 512, seed=101)[None, ..., :1]).cuda())[:, :, 0]
-            .contiguous(),
-            "bc5": image_to_blocks(torch.from_numpy(photo_rgba(
-                512, 512, seed=102)[None, ..., :2]).cuda()).contiguous()}
-        for which, x in bc45_images.items():
-            timed(res["bc45"], f"{which}_512", names,
-                  lambda f, wd, e, x=x, which=which:
-                  bc45_call(f, which, x, wd, e),
-                  x.shape[0], 2 if which == "bc4" else 4, args.reps)
+        # chip_smoke.py's BC4 and BC5 images, the 13x257 photo, and the
+        # large images
+        arrays = {
+            "bc4_512": photo_rgba(512, 512, seed=101)[None, ..., :1],
+            "bc5_512": photo_rgba(512, 512, seed=102)[None, ..., :2],
+            "bc4_13x257": photo_rgba(13, 257, seed=105)[None, ..., :1],
+            "bc5_13x257": photo_rgba(13, 257, seed=105)[None, ..., :2],
+            "bc4_4096": photo_rgba(4096, 4096, seed=100)[None, ..., :1],
+            "bc5_2048": photo_rgba(2048, 2048, seed=106)[None, ..., :2]}
+
+        def bc45_input(which, t):
+            """The kernel's input as compress() makes it from the image."""
+            b = image_to_blocks(t)
+            return b[:, :, 0].contiguous() if which == "bc4" else b
+
+        tensors = {k: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                   for k, a in arrays.items()}
+        # a warm-up of about a second on every side
+        x = bc45_input("bc5", tensors["bc5_2048"])
+        o = (torch.empty((x.shape[0], 4), dtype=torch.int32, device="cuda"),
+             torch.empty((x.shape[0],), dtype=torch.float32, device="cuda"))
+        for _ in range(20):
+            for s in names45:
+                bc45_call(side[s], "bc5", x, {}, *o)
+        torch.cuda.synchronize()
+        for label, t in tensors.items():
+            which = label[:3]
+            x = bc45_input(which, t)
+            budgets = BC45_BUDGETS if label.endswith("_512") else \
+                {"default": {}}
+            for budget, kw in budgets.items():
+                timed(res["bc45"], f"{label}_{budget}", names45,
+                      lambda f, wd, e, x=x, kw=kw, which=which:
+                      bc45_call(f, which, x, kw, wd, e),
+                      x.shape[0], 2 if which == "bc4" else 4,
+                      max(2, args.reps // 5) if x.shape[0] > 5e5
+                      else args.reps)
+        # as compress() runs them at 512x512: the kernel right after
+        # image_to_blocks, and the whole call with the port's launches
+        # routed through each side's library
+        ctypes_of = {"bc4": gic.CompressType.DXBC4,
+                     "bc5": gic.CompressType.DXBC5}
+        for which in ("bc4", "bc5"):
+            t = tensors[f"{which}_512"]
+            x = bc45_input(which, t)
+            o = (torch.empty((x.shape[0], 2 if which == "bc4" else 4),
+                             dtype=torch.int32, device="cuda"),
+                 torch.empty((x.shape[0],), dtype=torch.float32,
+                             device="cuda"))
+            key = f"{which}_512_after_blocks"
+            res["bc45"][key] = {
+                "ms": in_turns(names45, lambda s, t=t, x=x, o=o, which=which:
+                               launch_ms(lambda: bc45_input(which, t),
+                                         lambda: bc45_call(side[s], which, x,
+                                                           {}, *o),
+                                         args.reps))}
+            print(json.dumps({key: res["bc45"][key]}), flush=True)
+            img = gic.Image.from_array(np.ascontiguousarray(
+                arrays[f"{which}_512"]))
+            outs = {}
+            for s in names45:
+                with port_libraries({"bc45": libs_of[s]["bc45"]}):
+                    outs[s] = (gic.compress(ctypes_of[which], img)
+                               .blocks.reshape(x.shape[0], -1),)
+            torch.cuda.synchronize()
+            differ = {s: blocks_differing(outs["old"], outs[s])
+                      for s in names45[1:]}
+            ok = ok and not any(differ.values())
+
+            def compress_ms(s, img=img, which=which):
+                with port_libraries({"bc45": libs_of[s]["bc45"]}):
+                    return time_ms(lambda: gic.compress(ctypes_of[which],
+                                                        img), args.reps)
+            key = f"compress_{which}_512"
+            res["bc45"][key] = {"blocks_differing": differ,
+                                "ms": in_turns(names45, compress_ms)}
+            print(json.dumps({key: res["bc45"][key]}), flush=True)
 
     if "k3" in parts:
         photo = photo_rgba(1024, 1024, seed=110)

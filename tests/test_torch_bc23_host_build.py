@@ -1,6 +1,5 @@
-"""The BC3 kernel's phases (K1b), the BC2 kernel's one-thread block (K1c)
-and the one-thread scalar search of K2a, compiled for the host, against the
-plain versions.
+"""The BC3 kernel's phases (K1b) and the BC2 kernel's one-thread block (K1c),
+compiled for the host, against the plain versions.
 
 ``csrc/bc23_group.cuh`` is plain C++ apart from the CUDA keywords (the kernels
 and launchers sit behind ``__CUDACC__``), so ``g++`` builds it against the
@@ -12,8 +11,8 @@ per block and family) and the split finish's (``bc3_alpha_half``, one
 thread per family), in the order the CTA runs its stages between barriers;
 the pick, pack and write are the card's ``bc3_finish``. K1c's ``bc2_block``
 runs as the card's thread runs it. The same numpy blocks go through the host
-build and through ``encode_bc3_blocks_plain`` / ``encode_bc2_blocks_plain``
-/ ``encode_bc4_blocks_plain``, and the words and errors must be equal on
+build and through ``encode_bc3_blocks_plain`` / ``encode_bc2_blocks_plain``,
+and the words and errors must be equal on
 every block (``-ffp-contract=off`` stands in for ``nvcc -fmad=false``). With
 ``orders``, the state is filled with 0xFF bytes before each block (a read of
 what no phase wrote reads NaN), every phase runs with its lanes in
@@ -31,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from gfx_imagecompress_tpu_torch.kernels import bc1, bc4
+from gfx_imagecompress_tpu_torch.kernels import bc1
 
 from test_torch_bc1_host_build import _blocks
 from test_torch_bc7_host_build import CSRC, STUB
@@ -136,21 +135,6 @@ extern "C" long long host_bc23(int which, const float* x, long long n,
   return g_races;
 }
 
-// K2a: the one-thread bc4_search on (n,16) values in [0,1]
-extern "C" void host_bc4(const float* x, long long n, int iters, int radius, int rounds,
-                         unsigned* words, float* err) {
-  for (long long i = 0; i < n; ++i) {
-    float v[16];
-    for (int p = 0; p < 16; ++p) v[p] = x[16 * i + p] * 255.0f;
-    int a0, a1, idx[16];
-    bcx::bc4_search(v, iters, radius, rounds, a0, a1, idx, err[i]);
-    uint32_t w0, w1;
-    bcx::pack_dxt5(a0, a1, idx, w0, w1);
-    words[2 * i] = w0;
-    words[2 * i + 1] = w1;
-  }
-}
-
 // K1b's launch shape: threads per CTA, of them the colour groups'
 extern "C" void host_bc23_shape(int* out) {
   out[0] = bcx::BC3_THREADS;
@@ -178,8 +162,6 @@ def host_lib(tmp_path_factory):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.host_bc23.argtypes = [i, p, ll, p, i, i, i, i, i, i, i, p, p]
     lib.host_bc23.restype = ll
-    lib.host_bc4.argtypes = [p, ll, i, i, i, p, p]
-    lib.host_bc4.restype = None
     lib.host_bc23_shape.argtypes = [p]
     lib.host_bc23_shape.restype = None
     return lib
@@ -260,25 +242,6 @@ def test_bc3_phases_do_not_depend_on_lane_order(host_lib, budget):
     wh, eh, races = _host(host_lib, 3, x, kw, orders=True)
     assert races == 0, f"{races} phases depend on the order of their lanes"
     _assert_equal((wh, eh), _plain(3, x, kw))
-
-
-@pytest.mark.parametrize("kw", [{}, {"radius": 1, "rounds": 1},
-                                {"iters": 0, "radius": 0}],
-                         ids=["default", "r1", "no_fit_no_climb"])
-def test_host_built_bc4_search_equals_plain_version(host_lib, kw):
-    """K2a's one-thread search: the two family helpers, the pick, the
-    winner's indices."""
-    x = np.ascontiguousarray(_blocks()[..., 3])
-    k = dict(iters=3, radius=2, rounds=2)
-    k.update(kw)
-    n = x.shape[0]
-    words = np.zeros((n, 2), np.uint32)
-    err = np.zeros((n,), np.float32)
-    host_lib.host_bc4(x.ctypes.data, n, k["iters"], k["radius"], k["rounds"],
-                      words.ctypes.data, err.ctypes.data)
-    wp, ep = bc4.encode_bc4_blocks_plain(torch.from_numpy(x), **k)
-    np.testing.assert_array_equal(words, wp.numpy().view(np.uint32))
-    np.testing.assert_array_equal(err, ep.numpy())
 
 
 def test_bc3_launch_shape_is_the_wrappers(host_lib):

@@ -170,6 +170,35 @@ def test_bc23_kernels_at_block_counts_that_do_not_fill_a_cta(n, name):
     assert torch.equal(ek, ep)
 
 
+BC45_CASES = {
+    "bc4": (bc4.encode_bc4_blocks, bc4.encode_bc4_blocks_plain, {}),
+    "bc4_r1": (bc4.encode_bc4_blocks, bc4.encode_bc4_blocks_plain,
+               {"radius": 1, "rounds": 1}),
+    "bc5": (bc4.encode_bc5_blocks, bc4.encode_bc5_blocks_plain, {}),
+    "bc5_r1": (bc4.encode_bc5_blocks, bc4.encode_bc5_blocks_plain,
+               {"radius": 1, "rounds": 1}),
+}
+
+
+@pytest.mark.parametrize("name", list(BC45_CASES))
+@pytest.mark.parametrize("n", [1, 3, 4097])
+def test_bc45_kernels_at_block_counts_that_do_not_fill_a_cta(n, name):
+    """K2a and K2b encode bc4.BC45_THREADS / (2 * lanes * channels) blocks
+    per CTA (a group of lanes per block and channel): grids whose last CTA
+    is partly empty, words and errors bit-identical to the plain
+    versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    wrapper, plain, kw = BC45_CASES[name]
+    x = torch.from_numpy(_blocks(max(n, 128), seed=n)[:n].copy()).cuda()
+    x = x[:, :, 0].contiguous() if name.startswith("bc4") else \
+        x[:, :, :2].contiguous()
+    wk, ek = wrapper(x, **kw)
+    wp, ep = plain(x, **kw)
+    assert torch.equal(wk, wp)
+    assert torch.equal(ek, ep)
+
+
 @pytest.mark.parametrize("barred", [False, True], ids=["free", "barred"])
 @pytest.mark.parametrize("n", [1, 3, 4097])
 @pytest.mark.parametrize("name", ["rgb_2sub", "rgb_3sub", "rgba_pca"])
