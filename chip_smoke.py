@@ -11,6 +11,10 @@ against its plain PyTorch version on the card, drives ``compress()`` for
 BC1-BC5, for the fast BC7 path, for the full BC7 path and for BC6H (unsigned
 and signed) at the sizes BASELINE.json names, decodes and checks every result,
 and shows with the launch counters that each path went through its kernels.
+Then it drives the batched block entries (``blockapi``), holds the port's
+decoders against the native C++ oracle on every block it emitted, runs the
+quality matrix against the cached reference encoders (``bench_quality``),
+and encodes sharded in an NCCL process group of one (``dist.sharded``).
 Each phase prints one JSON line. Any failed check makes the exit code non-zero
 and suppresses the final ``{"ok": true, ...}`` line. Without a CUDA device
 the script exits non-zero at once; it never computes on the CPU.
@@ -763,6 +767,322 @@ def compare_est(label, est, x, cfg, reps):
             "max_abs_err": float((ik - ip).abs().max().item())}
 
 
+# ------------------------------------------------ the later slices' phases ---
+
+def _decoders():
+    """Format -> (the port's decoder on the card, the native oracle), both to
+    numpy arrays of one dtype."""
+    from gfx_imagecompress_tpu_torch import native
+    from gfx_imagecompress_tpu_torch.decode import bcn
+    from gfx_imagecompress_tpu_torch.decode.bc6h import decode_bc6h_half
+    from gfx_imagecompress_tpu_torch.decode.bc7 import decode_bc7
+
+    def np8(t):
+        return t.cpu().numpy().astype(np.uint8)
+
+    return {
+        "bc1": (lambda w: np8(bcn.decode_bc1(w)), native.decode_bc1),
+        "bc1_four": (lambda w: np8(bcn.decode_bc1(w, force_four=True)),
+                     lambda w: native.decode_bc1(w, force_four=True)),
+        "bc2": (lambda w: np8(bcn.decode_bc2(w)), native.decode_bc2),
+        "bc3": (lambda w: np8(bcn.decode_bc3(w)), native.decode_bc3),
+        "bc4": (lambda w: np8(bcn.decode_bc4(w)[:, :, 0]), native.decode_bc4),
+        "bc5": (lambda w: np8(bcn.decode_bc5(w)), native.decode_bc5),
+        "bc7": (lambda w: np8(decode_bc7(w)), native.decode_bc7),
+        "bc6h_uf": (lambda w: decode_bc6h_half(w, False).cpu().numpy()
+                    .astype(np.uint16),
+                    lambda w: native.decode_bc6h(w, signed=False)),
+        "bc6h_sf": (lambda w: decode_bc6h_half(w, True).cpu().numpy()
+                    .astype(np.uint16),
+                    lambda w: native.decode_bc6h(w, signed=True)),
+    }
+
+
+def _packed_rgba8(blocks01):
+    """(N,16,4) floats in [0,1] -> (N,16) int32 storage of packed RGBA8
+    words (R in the low byte), as a caller of the bc7enc16 entry holds
+    them."""
+    q = torch.round(blocks01 * 255.0).to(torch.int64)
+    p = q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16) | (q[..., 3] << 24)
+    return torch.where(p >= 2 ** 31, p - 2 ** 32, p).to(torch.int32)
+
+
+def phase_block_api(smi, rgba, alpha, quick):
+    """The six batched block entries (``blockapi``) on the card, on the 1K
+    photo's blocks (the alpha entries on the 1K alpha field): one run with
+    the launch counts set to 0 before it and read after it, then for each
+    entry its time, a decode through the native oracle, and its words
+    against the same entry's plain versions run on the card on a slice
+    (1,024 blocks for the BC7 entries, every block for the others; the
+    explicit alpha entry bit-exact against the same entry on the CPU)."""
+    from gfx_imagecompress_tpu_torch import blockapi, kernels, native
+    from gfx_imagecompress_tpu_torch.kernels import bc1, bc4, bc7_fast
+    from gfx_imagecompress_tpu_torch.kernels import bc7_full
+    t0 = time.perf_counter()
+    n = rgba.shape[0]
+    thr = 128 / 255.0
+    punch = rgba.clone()
+    punch[..., 3] = alpha
+    packed = _packed_rgba8(rgba)
+    unpacked = torch.stack([(packed.to(torch.int64) >> s) & 0xFF
+                            for s in (0, 8, 16, 24)], -1).to(torch.float32)
+    unpacked = torch.div(unpacked, torch.full_like(unpacked, 255.0))
+    rgb = rgba[..., :3]
+    w3 = PERCEPTUAL                     # the block entries' colour weights
+    # name -> (entry call, plain call on a slice, slice size, decode key or
+    #          None, source in 0..255 and its channels for the PSNR)
+    small = 256 if quick else 1024
+    n_b3d = 256 if quick else 4096
+    entries = {
+        "rgb_single_mode": (
+            lambda x=rgb: blockapi.compress_rgb_single_mode_blocks(x),
+            lambda k: bc1.encode_bc1_blocks_plain(
+                rgb[:k], w3, 3, 1, allow_three=False)[0], n, "bc1_four",
+            rgba, 3),
+        "rgb_single_mode_b3d_r0": (
+            lambda x=rgb[:n_b3d]: blockapi.compress_rgb_single_mode_blocks(
+                x, b3d_refinement=True, refinement_steps=0),
+            lambda k: bc1.encode_bc1_blocks_plain(
+                rgb[:k], w3, 2, 1, allow_three=False, b3d=True)[0], n_b3d,
+            "bc1_four", rgba[:n_b3d], 3),
+        "bc1": (lambda x=rgba: blockapi.compress_bc1_blocks(x),
+                lambda k: bc1.encode_bc1_blocks_plain(rgba[:k], w3, 3, 1)[0],
+                n, "bc1", rgba, 3),
+        "bc1_punch": (
+            lambda x=punch: blockapi.compress_bc1_blocks(
+                x, alpha_threshold=thr),
+            lambda k: bc1.encode_bc1_blocks_plain(
+                punch[:k], w3, 3, 1, use_alpha=True,
+                alpha_threshold=thr)[0], n, "bc1", None, 3),
+        "alpha_single_mode": (
+            lambda x=alpha: blockapi.compress_alpha_single_mode_blocks(x),
+            lambda k: bc4.encode_bc4_blocks_plain(alpha[:k])[0], n, "bc4",
+            alpha[..., None], 1),
+        "explicit_alpha": (
+            lambda x=alpha: blockapi.compress_explicit_alpha_blocks(x),
+            lambda k: blockapi.compress_explicit_alpha_blocks(
+                alpha[:k].cpu(), device="cpu"), n, "bc2", None, 1),
+        "multi_mode_ldr": (
+            lambda x=rgba: blockapi.compress_multi_mode_ldr_blocks(x),
+            lambda k: bc7_full.encode_bc7_blocks_plain(rgba[:k])[0], small,
+            "bc7", rgba, 3),
+        "bc7enc16": (
+            lambda x=packed: blockapi.compress_richgel999_bc7enc16_blocks(x),
+            lambda k: bc7_fast.encode_bc7_fast_blocks_plain(
+                unpacked[:k])[0], small, "bc7", unpacked, 4),
+    }
+    kernels.reset_launch_counts()
+    words = {name: e[0]() for name, e in entries.items()}
+    torch.cuda.synchronize()
+    got = kernels.launch_counts()
+    launches = {k: got[k] for k in ("bc1", "bc4", "bc7_est", "bc7_full",
+                                    "bc7_fast")}
+    for k, v in launches.items():
+        check(v > 0, f"block_api: the entries never launched the {k} kernel")
+    rows = []
+    for name, (call, plain, k, dec_key, src, nch) in entries.items():
+        w = words[name]
+        nb = w.shape[0]
+        check(w.dtype == torch.int32 and w.device.type == "cuda"
+              and tuple(w.shape) == (nb, 4 if dec_key == "bc7" else 2),
+              f"block_api[{name}]: words {w.dtype} {tuple(w.shape)} on "
+              f"{w.device}")
+        k = min(k, nb)
+        pw = plain(k)
+        same = (w[:k].cpu() == pw.cpu()).all(dim=1).double().mean().item()
+        check(same == 1.0, f"block_api[{name}]: {same:.6f} of the first {k} "
+              "blocks equal the plain versions")
+        if dec_key == "bc2":
+            dec = native.decode_bc2(torch.cat([w, torch.zeros_like(w)], 1))
+            dec = dec[..., 3:4]
+            ref = torch.round(alpha[..., None] * 255.0)
+        else:
+            dec = native.decode_bc1(w, force_four=True) if (
+                dec_key == "bc1_four") else getattr(
+                native, f"decode_{dec_key}")(w)
+            if dec.ndim == 2:
+                dec = dec[..., None]
+            if src is None:                 # punch-through: opaque pixels
+                dec_t = torch.from_numpy(dec.astype(np.int64))
+                opq = (punch[..., 3] * 255.0 >= thr * 255.0).cpu()
+                check(((dec_t[..., 3] > 127) == opq).all().item(),
+                      f"block_api[{name}]: decoded alpha differs from the "
+                      "mask")
+                dec = dec[..., :3][opq.numpy()]
+                ref = torch.round(punch[..., :3] * 255.0).cpu()[opq]
+            else:
+                ref = torch.round(src[..., :nch] * 255.0)
+            dec = dec[..., :nch]
+        db = psnr(torch.from_numpy(np.ascontiguousarray(dec)).to(torch.int64),
+                  ref.cpu())
+        floor = 20.0 if name == "explicit_alpha" else 30.0
+        check(np.isfinite(db) and db > floor,
+              f"block_api[{name}]: PSNR {db:.2f} dB <= {floor}")
+        ms = time_ms(call, 1 if quick else 10)
+        rows.append({"entry": name, "blocks": nb, "ms": ms,
+                     "mtexel_per_s": nb * 16 / ms / 1e3, "psnr_db": db,
+                     "plain_blocks_compared": k,
+                     "identical_frac_vs_plain": same})
+    ex = words["explicit_alpha"]
+    cpu = blockapi.compress_explicit_alpha_blocks(alpha.cpu(), device="cpu")
+    check(torch.equal(ex.cpu(), cpu), "block_api[explicit_alpha]: the card "
+          "differs from the CPU")
+    return {"phase": "block_api", "device": smi, "quick": quick,
+            "launches": launches, "entries": rows,
+            "seconds": time.perf_counter() - t0}, words
+
+
+def phase_native_oracle(native_info, emitted):
+    """The port's decoders (on the card) against the native oracle on every
+    block the main path and the block entries emitted."""
+    t0 = time.perf_counter()
+    dec = _decoders()
+    per_format = {}
+    for label, key, words in emitted:
+        port_fn, oracle_fn = dec[key]
+        w = words.reshape(-1, words.shape[-1]).contiguous()
+        a = port_fn(w)
+        b = oracle_fn(w)
+        same = a.shape == b.shape and bool((a == b).all())
+        check(same, f"native_oracle[{label}]: the port's {key} decoder "
+              "differs from the native oracle")
+        f = per_format.setdefault(key, {"blocks": 0, "outputs": 0,
+                                        "equal": True})
+        f["blocks"] += int(w.shape[0])
+        f["outputs"] += 1
+        f["equal"] = f["equal"] and same
+    for key in ("bc1", "bc2", "bc3", "bc4", "bc5", "bc7", "bc6h_uf",
+                "bc6h_sf"):
+        check(key in per_format, f"native_oracle: no {key} block checked")
+    return {"phase": "native_oracle", "build_seconds": native_info["seconds"],
+            "built": native_info["built"], "formats": per_format,
+            "seconds": time.perf_counter() - t0}
+
+
+def _plain_encode(codec, opts, b):
+    """The plain version of what ``bench_quality.fw_encode`` calls, on the
+    same device."""
+    from gfx_imagecompress_tpu_torch.kernels import (bc1, bc4, bc6h, bc7_fast,
+                                                     bc7_full)
+    if codec == "bc1":
+        return bc1.encode_bc1_blocks_plain(b, **opts)[0]
+    if codec == "bc4":
+        return bc4.encode_bc4_blocks_plain(b[:, :, 0])[0]
+    if codec == "bc2":
+        return bc1.encode_bc2_blocks_plain(b, **opts)[0]
+    if codec == "bc3":
+        return bc1.encode_bc3_blocks_plain(b, **opts)[0]
+    if codec == "bc7_fast":
+        return bc7_fast.encode_bc7_fast_blocks_plain(b, **opts)[0]
+    if codec == "bc7_full":
+        return bc7_full.encode_bc7_blocks_plain(b, **opts)[0]
+    return bc6h.encode_bc6h_blocks_plain(b[..., :3], **opts)[0]
+
+
+def phase_quality_matrix(smi, quick):
+    """``bench_quality.run(device="cuda")`` over the full matrix (the cheap
+    rows in a quick run), the reference side only from the cache: a miss is
+    a failed check. The gate is the JAX package's own, delta >= -0.05 dB on
+    every row. Each row's words are also held against the plain versions
+    run on the card."""
+    from gfx_imagecompress_tpu_torch import bench_quality as bq
+    from gfx_imagecompress_tpu_torch import kernels
+    t0 = time.perf_counter()
+    only = ["bc1", "bc4"] if quick else None
+    kernels.reset_launch_counts()
+    try:
+        rows = bq.run(device="cuda", only=only, cached_only=True)
+    except KeyError as e:
+        check(False, f"quality_matrix: {e}")
+        return {"phase": "quality_matrix", "rows": [],
+                "seconds": time.perf_counter() - t0}
+    got = kernels.launch_counts()
+    launches = {k: got[k] for k in got if k != "bc5"}
+    for k in (("bc1", "bc4") if quick else launches):
+        check(launches[k] > 0, f"quality_matrix: never launched {k}")
+    check(len(rows) == (2 if quick else 14),
+          f"quality_matrix: {len(rows)} rows")
+    matrix = {r[0]: r for r in bq.config_matrix()}
+    out = []
+    for r in rows:
+        _, codec, corpus_cfg, _, fw_opts, dec_kind = matrix[r["config"]]
+        check(r["delta_db"] >= bq.TOL_DB,
+              f"quality_matrix[{r['config']}]: port {r['fw_psnr']} dB vs "
+              f"reference {r['ref_psnr']} dB (delta {r['delta_db']} dB)")
+        blocks = bq.corpus_blocks(*corpus_cfg)
+        b = torch.from_numpy(np.ascontiguousarray(blocks, np.float32)).cuda()
+        kw = dict(fw_opts)
+        if codec == "bc1":
+            kw.setdefault("weights", PERCEPTUAL)
+        kernel_words = bq.fw_encode(codec, fw_opts, blocks, "cuda")
+        plain_words = _plain_encode(codec, kw, b)
+        same = (kernel_words == plain_words).all(dim=1).double().mean().item()
+        check(same == 1.0, f"quality_matrix[{r['config']}]: {same:.6f} of "
+              "the blocks equal the plain versions")
+        plain_db = float(bq._decode_psnr(dec_kind, plain_words, blocks))
+        out.append(dict(r, plain_psnr=round(plain_db, 3),
+                        identical_frac_vs_plain=same))
+    return {"phase": "quality_matrix", "device": smi, "quick": quick,
+            "launches": launches, "rows": out,
+            "worst_delta_db": min(r["delta_db"] for r in out),
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_sharded(smi, bc1_blocks, bc7_blocks, quick):
+    """``shard_encode`` in a world of one on NCCL (one GPU cannot hold two
+    ranks): BC1 on the 4096x4096 image's blocks and fast BC7 on the 1K
+    photo's, each against the unsharded call on every block."""
+    import socket
+    import torch.distributed as dist
+    from gfx_imagecompress_tpu_torch import kernels
+    from gfx_imagecompress_tpu_torch.dist import sharded
+    from gfx_imagecompress_tpu_torch.kernels import bc1, bc7_fast
+    t0 = time.perf_counter()
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ok = sharded.init_multihost(coordinator_address=f"127.0.0.1:{port}",
+                                num_processes=1, process_id=0,
+                                backend="nccl")
+    check(ok and dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "sharded: no NCCL process group of one")
+    rows = []
+    kernels.reset_launch_counts()
+    try:
+        for name, fn, x in (("bc1", bc1.encode_bc1_blocks, bc1_blocks),
+                            ("bc7_fast", bc7_fast.encode_bc7_fast_blocks,
+                             bc7_blocks)):
+            words, err, mse = sharded.shard_encode(fn, x)
+            torch.cuda.synchronize()
+            want_w, want_e = fn(x)
+            n = x.shape[0]
+            expect = want_e.double().sum().item() / (n * 16)
+            check(torch.equal(words, want_w) and torch.equal(err, want_e),
+                  f"sharded[{name}]: words or errors differ from the "
+                  "unsharded call")
+            check(abs(mse - expect) <= 1e-6 * abs(expect),
+                  f"sharded[{name}]: mse {mse} against {expect}")
+            host = sharded.gather_words(words)
+            check(host.dtype == np.uint32 and host.shape == tuple(words.shape),
+                  f"sharded[{name}]: gathered {host.dtype} {host.shape}")
+            reps = 1 if quick else 5
+            rows.append({"encoder": name, "blocks": n, "mse": mse,
+                         "mse_unsharded": expect,
+                         "sharded_ms": time_ms(lambda: sharded.shard_encode(
+                             fn, x), reps),
+                         "unsharded_ms": time_ms(lambda: fn(x), reps)})
+        got = kernels.launch_counts()
+        launches = {k: got[k] for k in ("bc1", "bc7_est", "bc7_fast")}
+        for k, v in launches.items():
+            check(v > 0, f"sharded: never launched {k}")
+    finally:
+        dist.destroy_process_group()
+    return {"phase": "sharded", "device": smi, "backend": "nccl",
+            "world_size": 1, "launches": launches, "encoders": rows,
+            "seconds": time.perf_counter() - t0}
+
+
 def ptxas_summary(logs):
     """Registers, stack and spill bytes per kernel from ``ptxas -v``."""
     out = []
@@ -822,6 +1142,9 @@ def main() -> int:
     resources = ptxas_summary(info["ptxas"])
     emit({"phase": "build", "seconds": info["seconds"],
           "built": info["built"], "resources": resources})
+    # the native decode oracle (g++), which the later phases decode through
+    from gfx_imagecompress_tpu_torch import native
+    native_info = dict(native.ensure_built())
 
     wrappers = {
         "bc1": (bc1.encode_bc1_blocks, bc1.encode_bc1_blocks_plain),
@@ -1029,6 +1352,13 @@ def main() -> int:
 
     main_rows = []
     shape_inputs = {}
+    # (label, decoder key, words) of every output the main path emitted, for
+    # the native_oracle phase
+    emitted = []
+    dec_key = {gic.CompressType.DXBC1: "bc1", gic.CompressType.DXBC2: "bc2",
+               gic.CompressType.DXBC3: "bc3", gic.CompressType.DXBC4: "bc4",
+               gic.CompressType.DXBC5: "bc5", bc7: "bc7",
+               "richgel_fast": "bc7", "bc7_full": "bc7"}
 
     def drive(label, ctype, arr, floor_db, nch):
         img = gic.Image.from_array(np.ascontiguousarray(arr))   # device=None
@@ -1064,6 +1394,7 @@ def main() -> int:
                           "compress_ms": ms,
                           "mtexel_per_s": texels / ms / 1e3})
         shape_inputs[label] = image_to_blocks(img.data)
+        emitted.append((label, dec_key[ctype], out.blocks))
 
     def card_equals_cpu(ctype, arr):
         """Small input: the card's output against the plain versions on the
@@ -1109,6 +1440,7 @@ def main() -> int:
     db = psnr(dec[..., :3][opaque], torch.round(img.data[..., :3] * 255)[opaque])
     check(db > 30.0, f"punch-through: opaque PSNR {db:.2f} dB <= 30")
     main_rows.append({"case": "bc1_punch_256", "blocks": 4096, "psnr_db": db})
+    emitted.append(("bc1_punch_256", "bc1", out.blocks))
 
     for ctype in (gic.CompressType.DXBC1, gic.CompressType.DXBC2,
                   gic.CompressType.DXBC3, gic.CompressType.DXBC4,
@@ -1207,6 +1539,7 @@ def main() -> int:
                           "compress_ms": ms,
                           "mtexel_per_s": texels / ms / 1e3})
         shape_inputs[label] = image_to_blocks(img.data)[:, :, :3].contiguous()
+        emitted.append((label, "bc6h_sf" if signed else "bc6h_uf", out.blocks))
 
     hdr_images = {}
     kernels.reset_launch_counts()
@@ -1573,6 +1906,26 @@ def main() -> int:
                                    if k["lib"] == "bc7_fast"])
         final.append(kernel_row(name, r, x, ops_per_block(name, x), **more))
 
+    # ---- the block API, the native oracle, the quality matrix and the
+    # sharded encode; each path is driven with the counts set to 0 just
+    # before it and read just after
+    later = {}
+    rgba1k = shape_inputs[f"bc7_fast_{side7}"]
+    alpha1k = shape_inputs["bc3_1k"][:, :, 3].contiguous()
+    later["block_api"], api_words = phase_block_api(smi, rgba1k, alpha1k, q)
+    emit(later["block_api"])
+    for name, key in (("rgb_single_mode", "bc1_four"), ("bc1", "bc1"),
+                      ("bc1_punch", "bc1"), ("alpha_single_mode", "bc4"),
+                      ("multi_mode_ldr", "bc7"), ("bc7enc16", "bc7")):
+        emitted.append((f"block_api_{name}", key, api_words[name]))
+    later["native_oracle"] = phase_native_oracle(native_info, emitted)
+    emit(later["native_oracle"])
+    later["quality_matrix"] = phase_quality_matrix(smi, q)
+    emit(later["quality_matrix"])
+    later["sharded"] = phase_sharded(smi, shape_inputs[f"bc1_{side_big}"],
+                                     rgba1k, q)
+    emit(later["sharded"])
+
     if args.out:
         import os
         os.makedirs(args.out, exist_ok=True)
@@ -1580,7 +1933,8 @@ def main() -> int:
             json.dump({"device": smi, "kind": kind, "build": resources,
                        "build_seconds": info["seconds"], "kernels": rows,
                        "main_path": main_rows, "launches": counts,
-                       "final": final, "failures": FAILURES}, f, indent=1)
+                       "final": final, **later, "failures": FAILURES}, f,
+                      indent=1)
         for lib, log in info["ptxas"].items():
             with open(os.path.join(args.out, f"{lib}.ptxas.txt"), "w") as f:
                 f.write(log)

@@ -1,11 +1,16 @@
 """Writes ``bc6h_layouts.cuh``, the BC6H mode table and bit layouts of the
-CUDA search, from the port's ``tables/bc6h_tables.py``, so that the kernel
-and the PyTorch encoder and decoder share one source of truth.
+CUDA search, and ``bc6h_layouts.inc``, the same layouts for the native decode
+oracle (``bcn_decode.cpp``), from the port's ``tables/bc6h_tables.py``, so
+that the kernel, the oracle and the PyTorch encoder and decoder share one
+source of truth.
 
-    python gfx_imagecompress_tpu_torch/csrc/gen_bc6h_layouts.py [OUT]
+    python gfx_imagecompress_tpu_torch/csrc/gen_bc6h_layouts.py [DIR]
 
-The header is committed; ``tests/test_torch_bc6h.py`` holds it equal to what
-this script writes now.
+writes both files into ``DIR`` (by default this script's directory).
+
+Both files are committed; ``tests/test_torch_bc6h.py`` holds the header and
+``tests/test_torch_native.py`` the oracle's include equal to what this script
+writes now.
 """
 from __future__ import annotations
 
@@ -81,9 +86,33 @@ def render() -> str:
     return "\n".join(out)
 
 
+def render_oracle() -> str:
+    """The oracle's include: every mode's segments (field, source bit,
+    destination bit, width) in one array, each layout ended by a zero
+    segment, and a pointer to each mode's first segment."""
+    t = _tables()
+    lines = ["// generated by gen_bc6h_layouts.py - do not edit",
+             "static const Seg kBc6hLayoutData[] = {"]
+    offsets = []
+    total = 0
+    for m in t.BC6H_MODES:
+        offsets.append(total)
+        for field, src, dst, n in t.LAYOUTS[m.mode]:
+            lines.append(f"  {{{t.FIELDS.index(field)}, {src}, {dst}, {n}}},")
+            total += 1
+        lines.append("  {0, 0, 0, 0},")  # terminator
+        total += 1
+    lines.append("};")
+    lines.append(f"static const Seg *kBc6hLayouts[{len(offsets)}] = {{")
+    lines += [f"  kBc6hLayoutData + {off}," for off in offsets]
+    lines.append("};")
+    return "\n".join(lines) + "\n"
+
+
 def main(argv) -> int:
-    path = Path(argv[1]) if len(argv) > 1 else HERE / "bc6h_layouts.cuh"
-    path.write_text(render())
+    out = Path(argv[1]) if len(argv) > 1 else HERE
+    (out / "bc6h_layouts.cuh").write_text(render())
+    (out / "bc6h_layouts.inc").write_text(render_oracle())
     return 0
 
 

@@ -33,7 +33,7 @@ import torch
 
 from ..options import PERCEPTUAL_WEIGHTS
 from .bc4 import (F32, I32, I64, _bc4_search, _check_blocks, _max16, _min16,
-                  _pack_dxt5, _sum16, wrap_u32)
+                  _pack_dxt5, _sum16, explicit_alpha, wrap_u32)
 from .bc7_est import sqrt32
 
 LEVELS4 = (0.0, 1.0 / 3.0, 2.0 / 3.0, 1.0)
@@ -592,16 +592,7 @@ def encode_bc2_blocks_plain(blocks: torch.Tensor,
         tuple(rows[:3]), None, weights=weights, iters=iters, passes=passes,
         allow_three=False, adaptive=adaptive)
     cw0, cw1 = _pack_bc1(a0, a1, pidx)
-    c = torch.clamp(torch.round(rows[3]), 0, 255).to(I32)       # (16,N)
-    hi = c >> 4
-    q = torch.clamp((c + torch.where(hi < 8, 7, 8) - hi) >> 4, max=15)
-    q64 = q.to(I64)
-    aw0 = torch.zeros_like(cw0)
-    aw1 = torch.zeros_like(cw0)
-    for p in range(8):
-        aw0 = aw0 | (q64[p:p + 1] << (4 * p))
-        aw1 = aw1 | (q64[8 + p:9 + p] << (4 * p))
-    aerr = _sum16((c - q * 17).to(F32) ** 2)
+    aw0, aw1, aerr = explicit_alpha(rows[3])
     return _words(aw0, aw1, cw0, cw1), (cerr + aerr)[0]
 
 

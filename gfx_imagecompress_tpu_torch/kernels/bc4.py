@@ -293,6 +293,23 @@ def _pack_dxt5(a0, a1, idx):
     return w0, w1
 
 
+def explicit_alpha(a255: torch.Tensor):
+    """Explicit 4-bit alpha (BC2's alpha half; the rounding of
+    amd_bcx_helpers.cpp:107-123): (16,N) float rows in 0..255 -> ((1,N) int64
+    word 0, (1,N) int64 word 1, (1,N) float32 squared error). Integer
+    arithmetic, so every device gives the same words."""
+    c = torch.clamp(torch.round(a255), 0, 255).to(I32)            # (16,N)
+    hi = c >> 4
+    q = torch.clamp((c + torch.where(hi < 8, 7, 8) - hi) >> 4, max=15)
+    q64 = q.to(I64)
+    w0 = q64.new_zeros((1, q64.shape[1]))
+    w1 = q64.new_zeros((1, q64.shape[1]))
+    for p in range(8):
+        w0 = w0 | (q64[p:p + 1] << (4 * p))
+        w1 = w1 | (q64[8 + p:9 + p] << (4 * p))
+    return w0, w1, _sum16((c - q * 17).to(F32) ** 2)
+
+
 # ------------------------------------------------------- plain versions ---
 
 def encode_bc4_blocks_plain(vals01: torch.Tensor, *, iters: int = 3,
@@ -319,6 +336,16 @@ def encode_bc5_blocks_plain(blocks: torch.Tensor, *, iters: int = 3,
     w2, w3 = _pack_dxt5(a0g, a1g, idxg)
     words = wrap_u32(torch.cat([w0, w1, w2, w3], dim=0).t().contiguous())
     return words, (errr + errg)[0]
+
+
+def encode_bc2_alpha_blocks(vals01: torch.Tensor):
+    """(N,16) float scalar blocks in [0,1] -> ((N,2) int32 explicit 4-bit
+    alpha words, (N,) float32 squared error in 0..255 units). No kernel: the
+    quantization is elementwise torch arithmetic on the tensor's device."""
+    _check_blocks(vals01, 2, 0, "encode_bc2_alpha_blocks")
+    w0, w1, err = explicit_alpha(vals01.to(F32).t() * 255.0)
+    words = wrap_u32(torch.cat([w0, w1], dim=0).t().contiguous())
+    return words, err[0]
 
 
 # -------------------------------------------------------------- wrappers ---

@@ -423,3 +423,82 @@ def test_bc6h_wrapper_raises_on_what_the_kernel_does_not_take():
     with pytest.raises(RuntimeError):
         _build.launch("bc6h_encode", h, 256, 0, 2, 1, 0, 0x1FF, 12, words,
                       err)
+
+
+# ----------------------------------------------- block API, sharded encode ---
+
+def _block_api_cases(x):
+    from gfx_imagecompress_tpu_torch import blockapi
+    w = (0.3086, 0.6094, 0.0820)
+    a = x[:, :, 3].contiguous()
+    q = torch.round(x * 255.0).to(torch.int64)
+    packed = q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16) | (q[..., 3]
+                                                                 << 24)
+    unpacked = q.to(torch.float32)
+    unpacked = unpacked / torch.full_like(unpacked, 255.0)
+    return {
+        "rgb": (lambda: blockapi.compress_rgb_single_mode_blocks(x[..., :3]),
+                lambda: bc1.encode_bc1_blocks_plain(
+                    x[..., :3], w, 3, 1, allow_three=False)[0], "bc1"),
+        "rgb_b3d_r0": (lambda: blockapi.compress_rgb_single_mode_blocks(
+            x[:512, :, :3], b3d_refinement=True, refinement_steps=0),
+            lambda: bc1.encode_bc1_blocks_plain(
+                x[:512, :, :3], w, 2, 1, allow_three=False, b3d=True)[0],
+            "bc1"),
+        "bc1_punch": (lambda: blockapi.compress_bc1_blocks(
+            x, alpha_threshold=0.5), lambda: bc1.encode_bc1_blocks_plain(
+                x, w, 3, 1, use_alpha=True, alpha_threshold=0.5)[0], "bc1"),
+        "alpha": (lambda: blockapi.compress_alpha_single_mode_blocks(a),
+                  lambda: bc4.encode_bc4_blocks_plain(a)[0], "bc4"),
+        "explicit_alpha": (lambda: blockapi.compress_explicit_alpha_blocks(a),
+                           lambda: blockapi.compress_explicit_alpha_blocks(
+                               a.cpu(), device="cpu"), None),
+        "multi_mode_q05": (lambda: blockapi.compress_multi_mode_ldr_blocks(
+            x[:256], quality=0.5), lambda: bc7_full.encode_bc7_blocks_plain(
+                x[:256], quality=0.5)[0], "bc7_full"),
+        "bc7enc16": (lambda: blockapi.compress_richgel999_bc7enc16_blocks(
+            packed), lambda: bc7_fast.encode_bc7_fast_blocks_plain(
+                unpacked)[0], "bc7_fast"),
+    }
+
+
+@pytest.mark.parametrize("name", ["rgb", "rgb_b3d_r0", "bc1_punch", "alpha",
+                                  "explicit_alpha", "multi_mode_q05",
+                                  "bc7enc16"])
+def test_block_api_entry_equals_plain_version_on_the_card(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.from_numpy(_blocks(1024)).cuda()
+    entry, plain, kernel = _block_api_cases(x)[name]
+    kernels.reset_launch_counts()
+    got = entry()
+    torch.cuda.synchronize()
+    if kernel:
+        assert kernels.launch_counts()[kernel] > 0
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), plain().cpu())
+
+
+def test_sharded_encode_in_an_nccl_world_of_one():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import socket
+    import torch.distributed as dist
+    from gfx_imagecompress_tpu_torch.dist import sharded
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    assert sharded.init_multihost(coordinator_address=f"127.0.0.1:{port}",
+                                  num_processes=1, process_id=0,
+                                  backend="nccl")
+    try:
+        x = torch.from_numpy(_blocks(4097)).cuda()
+        for fn in (bc1.encode_bc1_blocks, bc7_fast.encode_bc7_fast_blocks):
+            words, err, mse = sharded.shard_encode(fn, x)
+            want_w, want_e = fn(x)
+            assert torch.equal(words, want_w) and torch.equal(err, want_e)
+            expect = want_e.double().sum().item() / (4097 * 16)
+            assert abs(mse - expect) <= 1e-6 * abs(expect)
+    finally:
+        dist.destroy_process_group()

@@ -32,7 +32,11 @@ def test_port_has_the_expected_modules():
             "kernels/bc7_fast.py", "kernels/bc7_full.py",
             "pipeline/chunking.py", "tables/bc6h_tables.py",
             "decode/bc6h.py", "kernels/bc6h.py",
-            "csrc/gen_bc6h_layouts.py"} <= names
+            "csrc/gen_bc6h_layouts.py", "blockapi.py", "native.py",
+            "bench_quality.py", "dist/__init__.py", "dist/sharded.py",
+            "refcpu/__init__.py", "refcpu/corpus.py", "refcpu/bcx_amd.py",
+            "refcpu/bc7enc16.py", "refcpu/bc7_amd.py",
+            "refcpu/bc6h_amd.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -59,6 +63,11 @@ def test_runs_with_jax_and_the_jax_package_blocked():
         "import numpy as np\n"
         "import gfx_imagecompress_tpu_torch as gic\n"
         "from gfx_imagecompress_tpu_torch import convert, kernels\n"
+        "from gfx_imagecompress_tpu_torch import bench_quality, blockapi\n"
+        "from gfx_imagecompress_tpu_torch import native\n"
+        "from gfx_imagecompress_tpu_torch.dist import sharded\n"
+        "from gfx_imagecompress_tpu_torch.refcpu import (bc6h_amd, bc7_amd,\n"
+        "    bc7enc16, bcx_amd, corpus)\n"
         "from gfx_imagecompress_tpu_torch.decode import decode_image\n"
         "from gfx_imagecompress_tpu_torch.io import dds\n"
         "arr = np.random.default_rng(0).random((8, 12, 4), dtype=np.float32)\n"
@@ -73,6 +82,11 @@ def test_runs_with_jax_and_the_jax_package_blocked():
         "hdr = gic.Image.from_array(arr * 9.0, hdr=True, device='cpu')\n"
         "out = gic.compress(gic.CompressType.DXBC6H, hdr)\n"
         "assert decode_image(out).shape == (1, 8, 12, 3)\n"
+        "b = np.asarray(out.blocks).reshape(-1, 4)\n"
+        "assert native.decode_bc6h(b).shape == (b.shape[0], 16, 3)\n"
+        "w = blockapi.compress_bc1_blocks(arr[:4].reshape(3, 16, 4),\n"
+        "                                 device='cpu')\n"
+        "assert tuple(w.shape) == (3, 2)\n"
         "import runpy\n"
         "runpy.run_path('gfx_imagecompress_tpu_torch/csrc/"
         "gen_bc6h_layouts.py', run_name='gen')\n"
