@@ -36,7 +36,7 @@ def test_port_has_the_expected_modules():
             "bench_quality.py", "dist/__init__.py", "dist/sharded.py",
             "refcpu/__init__.py", "refcpu/corpus.py", "refcpu/bcx_amd.py",
             "refcpu/bc7enc16.py", "refcpu/bc7_amd.py",
-            "refcpu/bc6h_amd.py"} <= names
+            "refcpu/bc6h_amd.py", "bench.py", "roofline.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -64,6 +64,7 @@ def test_runs_with_jax_and_the_jax_package_blocked():
         "import gfx_imagecompress_tpu_torch as gic\n"
         "from gfx_imagecompress_tpu_torch import convert, kernels\n"
         "from gfx_imagecompress_tpu_torch import bench_quality, blockapi\n"
+        "from gfx_imagecompress_tpu_torch import bench, roofline\n"
         "from gfx_imagecompress_tpu_torch import native\n"
         "from gfx_imagecompress_tpu_torch.dist import sharded\n"
         "from gfx_imagecompress_tpu_torch.refcpu import (bc6h_amd, bc7_amd,\n"
