@@ -1,0 +1,9 @@
+"""Share in % of the traced window in which no kernel, copy or set of the
+process ran on the card."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0 or t.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
